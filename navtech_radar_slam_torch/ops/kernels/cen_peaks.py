@@ -6,77 +6,34 @@ cen2019_scores_pallas``; its plain PyTorch twin is
 (what bounds it on the card, and the four-launch layout) is at the top of the
 CUDA source.
 
-Build: ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC`` into ``navtech_radar_slam_torch/_build/``, named by the
-source's hash, so an edited source is rebuilt.  The library has a plain C
-interface and is loaded with ctypes.  A failed build raises; nothing falls
-back.
+Built at first use by ``ops.kernels.build.KernelLibrary`` (nvcc, sm_90a,
+a plain C interface loaded with ctypes); a failed build raises, nothing
+falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
 from navtech_radar_slam_tpu.config import FeatureConfig, RadarConfig
-
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "cen_peaks.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from navtech_radar_slam_torch.ops.kernels.build import KernelLibrary
 
 #: kernel launches by ``cen2019_scores_cuda`` in this process (one per call)
 launch_count = 0
-#: what nvcc / ptxas printed for the last build in this process
-build_log = ""
-
-_lib = None
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
-            return os.path.join(cand, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("cen_peaks: nvcc not found (set CUDA_HOME)")
-    return found
-
-
-def build() -> ctypes.CDLL:
-    """Compile (if the source changed) and load the kernel library."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"cen_peaks_{digest}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"cen_peaks: nvcc failed ({proc.returncode}):\n{build_log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.cen2019_scores_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.cen2019_max_row_bins.argtypes = []
     lib.cen2019_max_row_bins.restype = ctypes.c_int
-    _lib = lib
-    return lib
+
+
+LIBRARY = KernelLibrary("cen_peaks", _bind)
 
 
 def cen2019_scores_cuda(power: torch.Tensor, fcfg: FeatureConfig,
@@ -98,7 +55,7 @@ def cen2019_scores_cuda(power: torch.Tensor, fcfg: FeatureConfig,
     if power.dim() != 2 or not power.is_contiguous():
         raise ValueError("cen2019_scores_cuda: needs a contiguous (NA, NBp) tensor, "
                          f"got shape {tuple(power.shape)}")
-    lib = build()
+    lib = LIBRARY.load()
     na, nbp = power.shape
     if nbp > lib.cen2019_max_row_bins():
         raise ValueError(f"cen2019_scores_cuda: rows of {nbp} bins exceed "

@@ -1,0 +1,234 @@
+"""ScanContext place recognition in PyTorch.
+
+Counterpart of ``navtech_radar_slam_tpu.ops.scancontext``: the 20-ring x
+60-sector polar occupancy descriptor (one scatter-max over the feature
+cloud), ring and sector keys, the distance of a query against the whole
+bank at every circular column shift, and the full-bank and ring-key loop
+detectors.
+
+``sc_shift_distance_matrix`` is the dispatch point of kernel K2: a CUDA
+tensor launches ``ops.kernels.sc_corr`` (no fallback), a CPU tensor runs the
+plain PyTorch version below.
+
+Not ported yet: ``ScanContextManager`` and
+``detect_loop_between_sessions`` (the multi-session API).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import torch
+
+from navtech_radar_slam_tpu.config import ScanContextConfig
+from navtech_radar_slam_torch.ops.kernels import sc_corr
+
+_TWO_PI = 2.0 * math.pi
+
+
+def make_scancontext(xy: torch.Tensor, z: torch.Tensor, valid: torch.Tensor,
+                     cfg: ScanContextConfig) -> torch.Tensor:
+    """Feature cloud -> (num_ring, num_sector) descriptor via scatter-max.
+
+    xy: (K, 2) sensor-frame meters; z: (K,) heights (0 for radar features).
+    With cfg.max_desc_features > 0 only the first that many slots (the
+    strongest features: clouds come in detector-power order) contribute."""
+    r = torch.sqrt(torch.sum(xy * xy, dim=-1))
+    theta = torch.fmod(torch.atan2(xy[:, 1], xy[:, 0]), _TWO_PI)
+    theta = torch.where(theta < 0, theta + _TWO_PI, theta)   # jnp.mod's sign rule
+
+    in_range = valid & (r < cfg.max_radius) & (r > 1e-3)
+    k = xy.shape[0]
+    if 0 < cfg.max_desc_features < k:
+        in_range = in_range & (torch.arange(k, device=xy.device) < cfg.max_desc_features)
+    ring = torch.clamp((r / cfg.max_radius * cfg.num_ring).to(torch.int64),
+                       0, cfg.num_ring - 1)
+    sector = torch.clamp((theta / _TWO_PI * cfg.num_sector).to(torch.int64),
+                         0, cfg.num_sector - 1)
+    val = torch.where(in_range, z + cfg.lidar_height,
+                      torch.full_like(z, float("-inf")))
+
+    desc = torch.full((cfg.num_ring * cfg.num_sector,), float("-inf"),
+                      dtype=val.dtype, device=xy.device)
+    desc = desc.scatter_reduce(0, ring * cfg.num_sector + sector, val, "amax")
+    desc = desc.reshape(cfg.num_ring, cfg.num_sector)
+    return torch.where(torch.isfinite(desc), desc, torch.zeros_like(desc))
+
+
+def ring_key(desc: torch.Tensor) -> torch.Tensor:
+    """Rotation-invariant row means."""
+    return torch.mean(desc, dim=-1)
+
+
+def sector_key(desc: torch.Tensor) -> torch.Tensor:
+    """Column means."""
+    return torch.mean(desc, dim=-2)
+
+
+def _normalize_columns(desc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unit-normalize descriptor columns; returns (normalized, nonzero mask)."""
+    norm = torch.linalg.norm(desc, dim=-2, keepdim=True)
+    return desc / torch.clamp(norm, min=1e-9), norm[..., 0, :] > 1e-9
+
+
+def _roll_index(s: int, device) -> torch.Tensor:
+    """(shift, column) -> query column (shift + column) mod S."""
+    a = torch.arange(s, device=device)
+    return (a[:, None] + a[None, :]) % s
+
+
+def sc_shift_distance_matrix_plain(query: torch.Tensor, bank: torch.Tensor
+                                   ) -> torch.Tensor:
+    """The plain PyTorch version of kernel K2 (any device): one true-fp32
+    matmul for the cosine mass of the rolled query against the bank, one for
+    the column counts, then the masked normalisation."""
+    n, nr, ns = bank.shape
+    qn, qnz = _normalize_columns(query)
+    bn, bnz = _normalize_columns(bank)
+    col = _roll_index(ns, query.device)
+    q_rolled = qn[:, col].permute(1, 0, 2).reshape(ns, nr * ns)   # (Z, R*C)
+    C = bn.reshape(n, nr * ns) @ q_rolled.T
+    counts = bnz.to(torch.float32) @ qnz[col].to(torch.float32).T
+    dist = 1.0 - C / torch.clamp(counts, min=1.0)
+    return torch.where(counts > 0, dist, torch.ones_like(dist))
+
+
+def sc_shift_distance_matrix(query: torch.Tensor, bank: torch.Tensor) -> torch.Tensor:
+    """distDirectSC at every circular column shift, batched over the bank.
+
+    query: (R, S); bank: (N, R, S).  Returns (N, S): entry [n, z] is the mean
+    over columns non-zero in both of (1 - cosine similarity), with the query
+    rolled by z columns; 1.0 where no column is non-zero in both.
+
+    A CUDA tensor runs kernel K2, a CPU tensor the plain version."""
+    if query.device.type == "cuda":
+        return sc_corr.sc_shift_distances_cuda(query.contiguous(), bank.contiguous())
+    if query.device.type != "cpu":
+        raise ValueError(f"sc_shift_distance_matrix: unsupported device {query.device}")
+    return sc_shift_distance_matrix_plain(query, bank)
+
+
+def sc_distance_all_shifts(query: torch.Tensor, bank: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Best distance over all shifts: (dist (N,), argmin shift (N,))."""
+    dist = sc_shift_distance_matrix(query, bank)
+    # clamp f32 rounding: a perfect self-match can land slightly below 0
+    return torch.clamp(torch.min(dist, dim=-1).values, min=0.0), torch.argmin(dist, dim=-1)
+
+
+def sc_distance_ratio_shifts(query: torch.Tensor, bank: torch.Tensor,
+                             cfg: ScanContextConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Best distance over the reference's restricted shift search: align by
+    sector key, then search only ± round(0.5 * search_ratio * S) shifts
+    around that alignment."""
+    ns = query.shape[1]
+    dist = sc_shift_distance_matrix(query, bank)                    # (N, S)
+    vq = sector_key(query)
+    vb = sector_key(bank)                                           # (N, S)
+    col = _roll_index(ns, query.device)
+    corr = vb @ vq[col].T                                           # (N, Z)
+    align = torch.argmin(torch.sum(vb * vb, dim=-1)[:, None] - 2.0 * corr, dim=-1)
+    radius = max(1, int(round(0.5 * cfg.search_ratio * ns)))
+    shifts = torch.arange(ns, device=query.device)
+    circ = torch.abs((shifts[None, :] - align[:, None] + ns // 2) % ns - ns // 2)
+    dist = torch.where(circ <= radius, dist, torch.full_like(dist, float("inf")))
+    best_shift = torch.argmin(dist, dim=-1)
+    return torch.clamp(torch.min(dist, dim=-1).values, min=0.0), best_shift
+
+
+def shift_to_yaw(shift: torch.Tensor, cfg: ScanContextConfig) -> torch.Tensor:
+    """Column shift -> yaw offset (rad)."""
+    s = shift.to(torch.float32)
+    s = torch.where(s > cfg.num_sector / 2, s - cfg.num_sector, s)
+    return s * (_TWO_PI / cfg.num_sector)
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k``: the k largest, equal values lowest index first
+    (``torch.topk`` promises no tie order)."""
+    vals, idx = torch.sort(x, descending=True, stable=True)
+    return vals[:k], idx[:k]
+
+
+def ring_key_candidates(query_key: torch.Tensor, bank_keys: torch.Tensor, k: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k nearest ring keys by L2: (indices, squared distances)."""
+    d2 = torch.sum((bank_keys - query_key[None, :]) ** 2, dim=-1)
+    neg_d2, idx = top_k(-d2, k)
+    return idx, -neg_d2
+
+
+def ringkey_searchable_bound(num_valid: int, cfg: ScanContextConfig) -> int:
+    """Upper bound (exclusive) of bank indices the ring-key path may search:
+    the recency exclusion, and the KD-tree staleness emulation (the
+    searchable bank freezes between rebuilds every tree_making_period)."""
+    bound = num_valid - cfg.num_exclude_recent
+    if cfg.tree_making_period > 1:
+        p = cfg.tree_making_period
+        e1 = cfg.num_exclude_recent + 1
+        v_last = e1 + (max(num_valid - e1, 0) // p) * p
+        bound = min(bound, v_last - cfg.num_exclude_recent)
+    return bound
+
+
+def ringkey_two_stage_best(query_desc: torch.Tensor, bank_desc: torch.Tensor,
+                           bank_ring_keys: torch.Tensor, searchable: torch.Tensor,
+                           k: int, cfg: ScanContextConfig
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Ring-key KNN prefilter of ``k`` candidates over the ``searchable``
+    rows, then shift-distance scoring on those candidates only.  Returns
+    (best row index, best distance (+inf if nothing searchable), best shift)."""
+    qkey = ring_key(query_desc)
+    d2 = torch.sum((bank_ring_keys - qkey[None, :]) ** 2, dim=-1)
+    d2 = torch.where(searchable, d2, torch.full_like(d2, float("inf")))
+    _, cand = top_k(-d2, k)
+    cand_desc = bank_desc[cand]
+    if cfg.search_ratio > 0:
+        dist, shift = sc_distance_ratio_shifts(query_desc, cand_desc, cfg)
+    else:
+        dist, shift = sc_distance_all_shifts(query_desc, cand_desc)
+    dist = torch.where(torch.isfinite(d2[cand]), dist, torch.full_like(dist, float("inf")))
+    j = torch.argmin(dist)
+    return cand[j], dist[j], shift[j]
+
+
+class LoopCandidate(NamedTuple):
+    idx: torch.Tensor        # () int64 matched keyframe index (-1 if none)
+    dist: torch.Tensor       # () float32 best SC distance
+    yaw: torch.Tensor        # () float32 yaw offset estimate (rad)
+    found: torch.Tensor      # () bool
+
+
+def _candidate(best, best_dist, shift, cfg: ScanContextConfig) -> LoopCandidate:
+    found = best_dist < cfg.sc_dist_thres
+    return LoopCandidate(idx=torch.where(found, best, torch.full_like(best, -1)),
+                         dist=best_dist, yaw=shift_to_yaw(shift, cfg), found=found)
+
+
+def detect_loop(query_desc: torch.Tensor, bank_desc: torch.Tensor, num_valid: int,
+                cfg: ScanContextConfig) -> LoopCandidate:
+    """Full-bank loop detection.  bank_desc: (N_max, R, S) padded bank;
+    num_valid: stored keyframes (the query is keyframe num_valid - 1; the
+    most recent num_exclude_recent are excluded)."""
+    n = bank_desc.shape[0]
+    dist, shift = sc_distance_all_shifts(query_desc, bank_desc)
+    searchable = torch.arange(n, device=bank_desc.device) < (num_valid - cfg.num_exclude_recent)
+    dist = torch.where(searchable, dist, torch.full_like(dist, float("inf")))
+    best = torch.argmin(dist)
+    return _candidate(best, dist[best], shift[best], cfg)
+
+
+def detect_loop_ringkey(query_desc: torch.Tensor, bank_desc: torch.Tensor,
+                        bank_ring_keys: torch.Tensor, num_valid: int,
+                        cfg: ScanContextConfig) -> LoopCandidate:
+    """Two-stage path: ring-key KNN prefilter (k = num_candidates), then the
+    shift distance on the candidates only, with the reference's KD-tree
+    staleness (tree_making_period) and restricted shift window
+    (search_ratio)."""
+    n = bank_desc.shape[0]
+    searchable = (torch.arange(n, device=bank_desc.device)
+                  < ringkey_searchable_bound(num_valid, cfg))
+    best, best_dist, best_shift = ringkey_two_stage_best(
+        query_desc, bank_desc, bank_ring_keys, searchable, cfg.num_candidates, cfg)
+    return _candidate(best, best_dist, best_shift, cfg)

@@ -1,16 +1,224 @@
-"""SE(2) host helpers in float64 numpy.
+"""SE(2)/SO(3)/SE(3) Lie-group math in PyTorch, plus float64 numpy host
+helpers.
 
-The counterparts of ``navtech_radar_slam_tpu.utils.geometry``'s ``*_np``
-functions (that module imports jax at its top, so the port cannot borrow
-them).  The per-scan pose bookkeeping of ``RadarOdometry`` runs on the host
-in f64, as in the JAX package; the torch SE(2)/SE(3)/SO(3) functions arrive
-with the keyframe path.
+The counterpart of ``navtech_radar_slam_tpu.utils.geometry`` (that module
+imports jax at its top, so the port cannot borrow it).  Layouts are the JAX
+module's:
+
+  * SE(2) pose   : (..., 3)    = [x, y, theta]
+  * SE(3) pose   : (..., 4, 4) homogeneous matrix
+  * SE(3) tangent: (..., 6)    = [rho(3), phi(3)]
+
+Every torch function broadcasts over leading dims and is safe under
+``torch.func`` transforms: the pose graph takes ``jvp`` and ``vjp`` through
+``se3_exp``, ``se3_log`` and ``se3_between``.  The guard formulas (the
+``_EPS`` sqrt guards, the ``atan2`` angle, the near-pi branch with its 1e-10
+floor) are JAX's, term for term: an "equivalent" formula is where NaN
+gradients come from.  Matrices are built with ``stack``/``cat``, never by
+writing into a ``zeros`` tensor.  Matmuls are true float32 (the package
+turns TF32 off).
+
+The per-scan pose bookkeeping runs on the host in f64 numpy, as in the JAX
+package (``*_np``).
 """
 
 from __future__ import annotations
 
-import numpy as np
+import math
 
+import numpy as np
+import torch
+
+_EPS = 1e-8
+
+
+# ---------------------------------------------------------------------------
+# SE(2)
+# ---------------------------------------------------------------------------
+
+def wrap_angle(theta: torch.Tensor) -> torch.Tensor:
+    """Wrap angle(s) to (-pi, pi]."""
+    return torch.atan2(torch.sin(theta), torch.cos(theta))
+
+
+def se2_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Compose SE(2) poses: a ∘ b (apply b in a's frame)."""
+    xa, ya, ta = a[..., 0], a[..., 1], a[..., 2]
+    xb, yb, tb = b[..., 0], b[..., 1], b[..., 2]
+    c, s = torch.cos(ta), torch.sin(ta)
+    x = xa + c * xb - s * yb
+    y = ya + s * xb + c * yb
+    return torch.stack([x, y, wrap_angle(ta + tb)], dim=-1)
+
+
+def se2_inv(a: torch.Tensor) -> torch.Tensor:
+    x, y, t = a[..., 0], a[..., 1], a[..., 2]
+    c, s = torch.cos(t), torch.sin(t)
+    return torch.stack([-(c * x + s * y), -(-s * x + c * y), -t], dim=-1)
+
+
+def se2_between(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Relative pose a^{-1} ∘ b (gtsam ``between``)."""
+    return se2_mul(se2_inv(a), b)
+
+
+def se2_apply(a: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Transform points (..., N, 2) by pose(s) (..., 3)."""
+    c, s = torch.cos(a[..., 2:3]), torch.sin(a[..., 2:3])
+    x, y = pts[..., 0], pts[..., 1]
+    return torch.stack([c * x - s * y + a[..., 0:1],
+                        s * x + c * y + a[..., 1:2]], dim=-1)
+
+
+def se2_to_se3(p: torch.Tensor) -> torch.Tensor:
+    """Lift [x, y, theta] to a 4x4 SE(3) matrix (z = 0, roll = pitch = 0)."""
+    x, y, t = p[..., 0], p[..., 1], p[..., 2]
+    c, s = torch.cos(t), torch.sin(t)
+    zero, one = torch.zeros_like(x), torch.ones_like(x)
+    return torch.stack([
+        torch.stack([c, -s, zero, x], dim=-1),
+        torch.stack([s, c, zero, y], dim=-1),
+        torch.stack([zero, zero, one, zero], dim=-1),
+        torch.stack([zero, zero, zero, one], dim=-1),
+    ], dim=-2)
+
+
+def se3_to_se2(T: torch.Tensor) -> torch.Tensor:
+    """Project an SE(3) matrix to [x, y, yaw]."""
+    return torch.stack([T[..., 0, 3], T[..., 1, 3],
+                        torch.atan2(T[..., 1, 0], T[..., 0, 0])], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# SO(3)
+# ---------------------------------------------------------------------------
+
+def so3_hat(w: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric matrix of (..., 3)."""
+    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+    zero = torch.zeros_like(wx)
+    return torch.stack([
+        torch.stack([zero, -wz, wy], dim=-1),
+        torch.stack([wz, zero, -wx], dim=-1),
+        torch.stack([-wy, wx, zero], dim=-1),
+    ], dim=-2)
+
+
+def _eye3_like(W: torch.Tensor) -> torch.Tensor:
+    return torch.eye(3, dtype=W.dtype, device=W.device).expand(W.shape)
+
+
+def so3_exp(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues formula with a Taylor guard near 0."""
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    small = theta2 < 1e-8
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / theta2.clamp(min=1e-16))
+    W = so3_hat(w)
+    return _eye3_like(W) + a[..., None, None] * W + b[..., None, None] * (W @ W)
+
+
+def _vee_asym(R: torch.Tensor) -> torch.Tensor:
+    return torch.stack([R[..., 2, 1] - R[..., 1, 2],
+                        R[..., 0, 2] - R[..., 2, 0],
+                        R[..., 1, 0] - R[..., 0, 1]], dim=-1)
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Log map SO(3) -> R^3, robust near 0 and pi (JAX's formulas: theta from
+    atan2(|vee(R - R^T)|/2, (trace - 1)/2); near pi the axis from the
+    diagonal of (R + I)/2, floored at 1e-10 so the backward pass stays
+    finite at exactly pi)."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = (trace - 1.0) * 0.5
+    v = _vee_asym(R) * 0.5
+    sin2 = torch.sum(v * v, dim=-1)
+    sin_t = torch.sqrt(sin2 + _EPS * _EPS)
+    theta = torch.atan2(sin_t, cos_t)
+    small = theta < 1e-4
+    near_pi = theta > math.pi - 1e-3
+    scale = torch.where(small, 1.0 + theta * theta / 6.0, theta / sin_t)
+    w_generic = v * scale[..., None]
+    B = (R + torch.eye(3, dtype=R.dtype, device=R.device)) * 0.5
+    diag = torch.stack([B[..., 0, 0], B[..., 1, 1], B[..., 2, 2]], dim=-1)
+    axis = torch.sqrt(torch.clamp(diag, min=1e-10))
+    axis = axis * torch.sign(_vee_asym(R) + 1e-20)
+    norm = torch.linalg.norm(axis, dim=-1, keepdim=True).clamp(min=1e-12)
+    w_pi = axis / norm * theta[..., None]
+    return torch.where(near_pi[..., None], w_pi, w_generic)
+
+
+def _so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
+    """Left Jacobian J_l of SO(3)."""
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    small = theta2 < 1e-8
+    W = so3_hat(w)
+    b = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / theta2.clamp(min=1e-16))
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                    (theta - torch.sin(theta)) / (theta2 * theta).clamp(min=1e-16))
+    return _eye3_like(W) + b[..., None, None] * W + c[..., None, None] * (W @ W)
+
+
+def _so3_left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    small = theta2 < 1e-8
+    W = so3_hat(w)
+    half_theta = theta * 0.5
+    sin_h = torch.sin(half_theta)
+    cot = torch.cos(half_theta) / torch.where(sin_h == 0, torch.ones_like(sin_h), sin_h)
+    k = torch.where(small, 1.0 / 12.0 + theta2 / 720.0,
+                    (1.0 - half_theta * cot) / theta2.clamp(min=1e-16))
+    return _eye3_like(W) - 0.5 * W + k[..., None, None] * (W @ W)
+
+
+# ---------------------------------------------------------------------------
+# SE(3)
+# ---------------------------------------------------------------------------
+
+def se3_from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """[R t; 0 1] built with cat/stack (no in-place writes)."""
+    top = torch.cat([R, t[..., :, None]], dim=-1)                   # (..., 3, 4)
+    bottom = torch.zeros(R.shape[:-2] + (1, 4), dtype=R.dtype, device=R.device)
+    bottom = bottom + torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
+                                   device=R.device)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def se3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """Exp map R^6 -> SE(3); xi = [rho, phi]."""
+    rho, phi = xi[..., :3], xi[..., 3:]
+    t = (_so3_left_jacobian(phi) @ rho[..., :, None])[..., 0]
+    return se3_from_rt(so3_exp(phi), t)
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    phi = so3_log(T[..., :3, :3])
+    rho = (_so3_left_jacobian_inv(phi) @ T[..., :3, 3:4])[..., 0]
+    return torch.cat([rho, phi], dim=-1)
+
+
+def se3_inv(T: torch.Tensor) -> torch.Tensor:
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    return se3_from_rt(Rt, -(Rt @ T[..., :3, 3:4])[..., 0])
+
+
+def se3_mul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    return A @ B
+
+
+def se3_between(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """gtsam Pose3::between — A^{-1} B."""
+    return se3_inv(A) @ B
+
+
+# ---------------------------------------------------------------------------
+# SE(2), host-side float64 numpy
+# ---------------------------------------------------------------------------
 
 def se2_mul_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """Compose two [x, y, theta] poses: a ∘ b, heading wrapped to (-pi, pi]."""

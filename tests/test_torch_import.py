@@ -13,7 +13,14 @@ MODULES = [
     "navtech_radar_slam_torch.ops.features",
     "navtech_radar_slam_torch.ops.registration",
     "navtech_radar_slam_torch.ops.kernels.cen_peaks",
+    "navtech_radar_slam_torch.ops.kernels.sc_corr",
+    "navtech_radar_slam_torch.ops.kernels.nn_dist",
+    "navtech_radar_slam_torch.ops.voxel",
+    "navtech_radar_slam_torch.ops.scancontext",
+    "navtech_radar_slam_torch.ops.icp",
     "navtech_radar_slam_torch.models.odometry",
+    "navtech_radar_slam_torch.models.posegraph",
+    "navtech_radar_slam_torch.models.slam",
     "navtech_radar_slam_torch.state",
     "navtech_radar_slam_torch.entry",
 ]

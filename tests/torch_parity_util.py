@@ -11,6 +11,7 @@ import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from navtech_radar_slam_tpu.config import SlamConfig
@@ -94,3 +95,12 @@ def assert_score_maps_close(a: np.ndarray, b: np.ndarray, frac: float = 0.01,
     assert n_diff <= frac * fa.sum(), f"{n_diff} of {fa.sum()} peaks differ"
     both = fa & fb
     np.testing.assert_allclose(a[both], b[both], rtol=0, atol=atol)
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, for the ``cuda``-marked tests; skips without one (a CUDA
+    kernel has no CPU mode)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
