@@ -12,14 +12,15 @@ Ported so far: the radar-odometry front-end (``models.odometry``), i.e.
              -> ORORA-style robust registration        (ops.registration)
              -> two de-skew re-registrations, host pose in f64
 
-The configuration (``navtech_radar_slam_tpu.config``) and the data helpers
-(``navtech_radar_slam_tpu.data``: simulator, MulRan reader, 4-bit packing)
-are shared with the JAX package: both are plain Python / numpy and import
-no jax.  Nothing in this package imports jax.
+The package stands alone: it keeps its own copies of the configuration
+(``config``) and of the data helpers it uses (``data``: the simulator and
+the 4-bit packing), and imports nothing of the JAX package, nor jax.
 
-Functions take tensors on an explicit device; a CUDA tensor always runs the
-hand-written kernels (there is no fallback), a CPU tensor their plain
-PyTorch twins.
+The entry points (``entry``, ``RadarOdometry``, ``SlamEngine``,
+``PoseGraph``, ``empty_graph``) run on the card unless the caller passes
+``device="cpu"``, and raise when no card is there.  Functions take tensors
+on an explicit device; a CUDA tensor always runs the hand-written kernels
+(there is no fallback), a CPU tensor their plain PyTorch twins.
 """
 
 import torch

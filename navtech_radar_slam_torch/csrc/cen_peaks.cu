@@ -21,14 +21,16 @@
 // contracted and sm, ga, gs and h round exactly as the twin's do; only the
 // sums behind mean_r, var_r and mean(h) are taken in another order.
 //
-// What bounds it on the card: memory.  The arithmetic is ~40 flops/px, far
+// What bounds it on the card: memory.  The arithmetic is ~43 flops/px, far
 // below the ~20 flop/byte balance point of the card's fp32 units, and the
-// scan is 1.38 M px.  The TPU kernel holds the whole 5.5 MB scan in VMEM
-// and takes two whole-scan reductions (max g, mean h) inside one kernel; a
-// Hopper block has at most 227 KB of shared memory and blocks cannot
-// synchronise across the grid.  So the design is one block per azimuth row
-// (a 13.8 KB row in shared memory) over four launches on one stream, each
-// boundary standing for a grid-wide barrier:
+// scan is 1.38 M px: 5.5 MB read and 5.5 MB written, 3.3 us at 3.35 TB/s.
+// The TPU kernel holds the whole scan in VMEM and takes two whole-scan
+// reductions (max g, mean h) inside one kernel.  A Hopper block has at most
+// 227 KB of shared memory, but the grid as a whole has 132 x 228 KB, and a
+// cooperative launch guarantees that all its blocks are resident at once.
+// So the design is ONE cooperative launch with one block of 256 threads per
+// azimuth row (400 blocks, four on each SM), whose four phases are
+// separated by grid-wide barriers (cooperative_groups::this_grid().sync()):
 //
 //   A  smooth:  band mask, Gaussian, |grad|; per-row mean and variance.
 //   B  gsmooth: the [1/4, 1/2, 1/4] azimuth smoothing (rows r-1, r, r+1);
@@ -37,18 +39,45 @@
 //   D  peaks:   mean h from the 400 row sums; mask; one thread per run start
 //               walks its run and marks the first maximum.
 //
-// About 8 bytes per pixel per pass in and out of device memory: some 50 MB
-// for the four launches.  The whole-scan sums are per-row partials reduced
-// in a fixed order (no float atomics), so two runs give the same map.  The
-// run walk is sequential per run; runs are short (a blob is a few bins), and
-// a warp-level segmented scan is later work, as is fusing the passes and
-// the top-k selection.
+// A row stays in dynamic shared memory across the phases as two float
+// arrays: `a` holds sm (in phase D, the peak flags) and `w` the working row
+// (s, then gs, then h, then sm under the mask and -inf off it): 8 bytes per
+// bin, 27.7 KB at 3456 bins with the zeros that pad `w`, plus the 1 KB
+// reduction scratch.  Only the per-row max of gs and sum of h, and the
+// |grad| rows that the azimuth neighbours read, cross blocks through device
+// memory; the |grad| rows go to the output buffer, which phase D overwrites
+// with the map once every block has read them, so the kernel needs no
+// scratch plane.  The scan is read once and the map written once.  The
+// whole-scan values are the 400 row partials reduced by every block in the
+// same fixed order (no float atomics), so two runs give the same map, and it
+// equals the four-launch design's bit for bit.  In phase D each position has
+// one writer: the thread that owns a run's first column walks the run (runs
+// are short, a blob is a few bins) and flags its first maximum in `a`; the
+// map is then written coalesced.
+//
+// Where the time goes, by per-block clock64 stamps on an H100: the range
+// smoothing took the largest share until its taps became compile-time
+// registers over a zero-padded row; the rest is the three grid barriers and
+// short elementwise phases whose __fdiv_rn and row reductions are
+// issue-bound at three to four blocks per SM.
+//
+// Co-residency is the risk: the host checks cudaDevAttrCooperativeLaunch
+// and that cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs covers every
+// row, and returns an error otherwise; there is no multi-launch fallback.
+// The rows' shared memory sets the longest row: at 400 rows an H100 must
+// hold four blocks on an SM, 57 KB each with the 1 KB the system reserves,
+// so a row may have up to 7,034 bins with 13 taps (the wrapper's
+// max_row_bins; the four-launch design took 6,144).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;  // a power of two: block_reduce halves it
+constexpr int kMinBlocksPerSm = 4;  // 400 rows on 132 SMs: <= 64 registers
 constexpr int kMaxTaps = 63;
 
 struct Taps {
@@ -66,16 +95,24 @@ struct MaxOp {
 };
 
 // Tree reduction over the block in a fixed pattern: the same inputs give the
-// same result on every run.
+// same result on every run.  Element i takes i + s for s = 128, 64, ..., 1;
+// the last five levels run in warp 0 as shuffles, with the same pairs.
 template <typename Op>
 __device__ float block_reduce(float v, float* red, Op op) {
   const int tid = threadIdx.x;
   red[tid] = v;
   __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
+  for (int s = kThreads / 2; s >= 32; s >>= 1) {
     if (tid < s) red[tid] = op(red[tid], red[tid + s]);
     __syncthreads();
   }
+  if (tid < 32) {
+    float x = red[tid];
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) x = op(x, __shfl_down_sync(0xffffffffu, x, s));
+    if (tid == 0) red[0] = x;
+  }
+  __syncthreads();
   const float out = red[0];
   __syncthreads();
   return out;
@@ -89,191 +126,208 @@ __device__ __forceinline__ int band_width(int nbp, int min_bin, int nb_valid) {
   return max(min(nb_valid, nbp) - max(min_bin, 0), 0);
 }
 
-// A: range smoothing, |range gradient|, per-row band mean and variance.
-__global__ void __launch_bounds__(kThreads)
-cen_smooth_kernel(const float* __restrict__ power, float* __restrict__ sm_out,
-                  float* __restrict__ ga_out, float* __restrict__ row_mean,
-                  float* __restrict__ row_var, int nbp, int min_bin, int nb_valid,
-                  Taps taps) {
+// Dynamic shared memory of one block: the rows `a` and `w`, and ntaps / 2
+// zeros on each side of `w` for the range smoothing.
+__host__ __device__ constexpr size_t row_smem_bytes(int nbp, int ntaps) {
+  return sizeof(float) * (2 * static_cast<size_t>(nbp) + ntaps - 1);
+}
+
+// One block per azimuth row r; all na blocks resident (cooperative launch).
+// N is the number of smoothing taps when known at compile time (13, for the
+// 2-bin sigma of every shipped config: the taps sit in registers and the
+// loop unrolls), 0 to take taps.n at run time.
+// stats holds 2 * na floats: the row maxima of gs, then the row sums of h.
+// `out` is read by other blocks in phase B, so it is neither const nor
+// __restrict__, and those reads go through L2 (__ldcg), never the
+// non-coherent read-only path.
+template <int N>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+cen2019_kernel(const float* __restrict__ power, float* out, float* stats, int na,
+               int nbp, int min_bin, int nb_valid, Taps taps, float zq) {
   extern __shared__ float smem[];
-  float* s = smem;
-  float* sm = smem + nbp;
+  const int ntaps = N > 0 ? N : taps.n;
+  const int rad = ntaps / 2;
+  float* a = smem;
+  float* w = smem + nbp + rad;   // w[-rad, nbp + rad) is in shared memory
   __shared__ float red[kThreads];
+  cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
-  const size_t row = static_cast<size_t>(blockIdx.x) * nbp;
+  const int r = blockIdx.x;
+  const size_t row = static_cast<size_t>(r) * nbp;
+  float* row_gmax = stats;
+  float* row_hsum = stats + na;
 
+  // A: range smoothing, |range gradient| (to `out`), row mean and variance.
+  // The zeros around s are the twin's zero padding, so the taps need no
+  // bounds test.
+  for (int c = tid; c < rad; c += kThreads) {
+    w[-1 - c] = 0.f;
+    w[nbp + c] = 0.f;
+  }
   for (int c = tid; c < nbp; c += kThreads)
-    s[c] = in_band(c, min_bin, nb_valid) ? power[row + c] : 0.f;
+    w[c] = in_band(c, min_bin, nb_valid) ? power[row + c] : 0.f;
   __syncthreads();
-
-  const int rad = taps.n / 2;
+  float tw[N > 0 ? N : 1];
+#pragma unroll
+  for (int t = 0; t < N; ++t) tw[t] = taps.w[t];
   float part = 0.f;
   for (int c = tid; c < nbp; c += kThreads) {
+    const float* x = w + c - rad;
     float acc = 0.f;
-    for (int t = 0; t < taps.n; ++t) {
-      const int cc = c + t - rad;
-      const float x = (cc >= 0 && cc < nbp) ? s[cc] : 0.f;
-      acc = __fadd_rn(acc, __fmul_rn(taps.w[t], x));
+    if constexpr (N > 0) {
+#pragma unroll
+      for (int t = 0; t < N; ++t) acc = __fadd_rn(acc, __fmul_rn(tw[t], x[t]));
+    } else {
+#pragma unroll 4
+      for (int t = 0; t < ntaps; ++t) acc = __fadd_rn(acc, __fmul_rn(taps.w[t], x[t]));
     }
-    sm[c] = acc;
-    sm_out[row + c] = acc;
+    a[c] = acc;
     if (in_band(c, min_bin, nb_valid)) part = __fadd_rn(part, acc);
   }
   const float denom = fmaxf(static_cast<float>(band_width(nbp, min_bin, nb_valid)), 1.f);
-  const float mean = __fdiv_rn(block_reduce(part, red, AddOp()), denom);  // syncs sm too
+  const float mean = __fdiv_rn(block_reduce(part, red, AddOp()), denom);  // syncs a too
 
   part = 0.f;
   for (int c = tid; c < nbp; c += kThreads) {
-    const float xl = c > 0 ? sm[c - 1] : 0.f;
-    const float xr = c + 1 < nbp ? sm[c + 1] : 0.f;
-    ga_out[row + c] = fabsf(__fadd_rn(__fmul_rn(0.5f, xl), __fmul_rn(-0.5f, xr)));
+    const float xl = c > 0 ? a[c - 1] : 0.f;
+    const float xr = c + 1 < nbp ? a[c + 1] : 0.f;
+    out[row + c] = fabsf(__fadd_rn(__fmul_rn(0.5f, xl), __fmul_rn(-0.5f, xr)));
     if (in_band(c, min_bin, nb_valid)) {
-      const float d = __fsub_rn(sm[c], mean);
+      const float d = __fsub_rn(a[c], mean);
       part = __fadd_rn(part, __fmul_rn(d, d));
     }
   }
   const float var = __fdiv_rn(block_reduce(part, red, AddOp()), denom);
-  if (tid == 0) {
-    row_mean[blockIdx.x] = mean;
-    row_var[blockIdx.x] = var;
-  }
-}
+  grid.sync();
 
-// B: azimuth smoothing of |grad| with wrap; per-row max.
-__global__ void __launch_bounds__(kThreads)
-cen_gsmooth_kernel(const float* __restrict__ ga, float* __restrict__ gs,
-                   float* __restrict__ row_gmax, int na, int nbp) {
-  __shared__ float red[kThreads];
-  const int r = blockIdx.x;
-  const size_t row = static_cast<size_t>(r) * nbp;
-  const float* up = ga + static_cast<size_t>((r + na - 1) % na) * nbp;
-  const float* mid = ga + row;
-  const float* dn = ga + static_cast<size_t>((r + 1) % na) * nbp;
+  // B: azimuth smoothing of |grad| with wrap, into w; row max.
+  const float* up = out + static_cast<size_t>((r + na - 1) % na) * nbp;
+  const float* mid = out + row;
+  const float* dn = out + static_cast<size_t>((r + 1) % na) * nbp;
   float m = neg_inf();
-  for (int c = threadIdx.x; c < nbp; c += kThreads) {
-    const float v = __fadd_rn(__fadd_rn(__fmul_rn(0.25f, up[c]), __fmul_rn(0.5f, mid[c])),
-                              __fmul_rn(0.25f, dn[c]));
-    gs[row + c] = v;
+  for (int c = tid; c < nbp; c += kThreads) {
+    const float v = __fadd_rn(__fadd_rn(__fmul_rn(0.25f, __ldcg(up + c)),
+                                        __fmul_rn(0.5f, __ldcg(mid + c))),
+                              __fmul_rn(0.25f, __ldcg(dn + c)));
+    w[c] = v;
     m = fmaxf(m, v);
   }
   m = block_reduce(m, red, MaxOp());
-  if (threadIdx.x == 0) row_gmax[r] = m;
-}
+  if (tid == 0) row_gmax[r] = m;
+  grid.sync();
 
-// C: h = max(sm - mean, 0) * (1 - gs / max g), written over gs; per-row sum
-// of h over the band.
-__global__ void __launch_bounds__(kThreads)
-cen_h_kernel(const float* __restrict__ sm, float* __restrict__ gs_h,
-             const float* __restrict__ row_mean, const float* __restrict__ row_gmax,
-             float* __restrict__ row_hsum, int na, int nbp, int min_bin, int nb_valid) {
-  __shared__ float red[kThreads];
-  const int tid = threadIdx.x;
-  const size_t row = static_cast<size_t>(blockIdx.x) * nbp;
+  // C: scan max from the row maxima; h = max(sm - mean, 0) * (1 - gs / max),
+  // into w; row sum of h over the band.
   float gm = neg_inf();
-  for (int i = tid; i < na; i += kThreads) gm = fmaxf(gm, row_gmax[i]);
+  for (int i = tid; i < na; i += kThreads) gm = fmaxf(gm, __ldcg(row_gmax + i));
   gm = fmaxf(block_reduce(gm, red, MaxOp()), 1e-9f);
-
-  const float mean = row_mean[blockIdx.x];
-  float part = 0.f;
+  part = 0.f;
   for (int c = tid; c < nbp; c += kThreads) {
-    const float g = __fdiv_rn(gs_h[row + c], gm);
-    const float sp = fmaxf(__fsub_rn(sm[row + c], mean), 0.f);
+    const float g = __fdiv_rn(w[c], gm);
+    const float sp = fmaxf(__fsub_rn(a[c], mean), 0.f);
     const float h = __fmul_rn(sp, __fsub_rn(1.f, g));
-    gs_h[row + c] = h;
+    w[c] = h;
     if (in_band(c, min_bin, nb_valid)) part = __fadd_rn(part, h);
   }
   part = block_reduce(part, red, AddOp());
-  if (tid == 0) row_hsum[blockIdx.x] = part;
-}
+  if (tid == 0) row_hsum[r] = part;
+  grid.sync();
 
-// D: mask and one peak per contiguous run.
-__global__ void __launch_bounds__(kThreads)
-cen_peaks_kernel(const float* __restrict__ sm, const float* __restrict__ h,
-                 const float* __restrict__ row_mean, const float* __restrict__ row_var,
-                 const float* __restrict__ row_hsum, float* __restrict__ out, int na,
-                 int nbp, int min_bin, int nb_valid, float zq) {
-  extern __shared__ float smem[];
-  float* v = smem;
-  unsigned char* mask = reinterpret_cast<unsigned char*>(smem + nbp);
-  unsigned char* peak = mask + nbp;
-  __shared__ float red[kThreads];
-  const int tid = threadIdx.x;
-  const size_t row = static_cast<size_t>(blockIdx.x) * nbp;
-
+  // D: mean h from the row sums; the mask (w = sm on it, -inf off it; sm is
+  // finite for a finite scan); one peak per contiguous run, flagged in a.
   float hs = 0.f;
-  for (int i = tid; i < na; i += kThreads) hs = __fadd_rn(hs, row_hsum[i]);
+  for (int i = tid; i < na; i += kThreads) hs = __fadd_rn(hs, __ldcg(row_hsum + i));
   hs = block_reduce(hs, red, AddOp());
   const float n_band = static_cast<float>(na) * band_width(nbp, min_bin, nb_valid);
   const float h_mean = __fdiv_rn(hs, fmaxf(n_band, 1.f));
-  const float gate =
-      __fadd_rn(row_mean[blockIdx.x], __fmul_rn(zq, __fsqrt_rn(row_var[blockIdx.x])));
-
+  const float gate = __fadd_rn(mean, __fmul_rn(zq, __fsqrt_rn(var)));
   for (int c = tid; c < nbp; c += kThreads) {
-    const float x = sm[row + c];
-    v[c] = x;
-    mask[c] = in_band(c, min_bin, nb_valid) && h[row + c] > h_mean && (zq <= 0.f || x > gate);
-    peak[c] = 0;
+    const float x = a[c];
+    const bool on = in_band(c, min_bin, nb_valid) && w[c] > h_mean && (zq <= 0.f || x > gate);
+    w[c] = on ? x : neg_inf();
+    a[c] = 0.f;
   }
   __syncthreads();
 
   // the thread that owns a run's first column walks the run; runs are
-  // disjoint, so each peak flag has one writer
+  // disjoint, so each flag has one writer
   for (int c = tid; c < nbp; c += kThreads) {
-    if (!mask[c] || (c > 0 && mask[c - 1])) continue;
+    if (w[c] == neg_inf() || (c > 0 && w[c - 1] != neg_inf())) continue;
     int best = c;
-    float bv = v[c];
-    for (int j = c + 1; j < nbp && mask[j]; ++j) {
-      if (v[j] > bv) {
-        bv = v[j];
+    float bv = w[c];
+    for (int j = c + 1; j < nbp && w[j] != neg_inf(); ++j) {
+      if (w[j] > bv) {
+        bv = w[j];
         best = j;
       }
     }
-    peak[best] = 1;
+    a[best] = 1.f;
   }
   __syncthreads();
 
-  for (int c = tid; c < nbp; c += kThreads) out[row + c] = peak[c] ? v[c] : neg_inf();
+  for (int c = tid; c < nbp; c += kThreads) out[row + c] = a[c] != 0.f ? w[c] : neg_inf();
 }
 
 }  // namespace
 
-// Largest row the kernels take with static-limit (48 KB) dynamic shared memory.
-extern "C" int cen2019_max_row_bins() { return (48 * 1024) / (2 * sizeof(float)); }
+// The launch constants the Python wrapper mirrors (ops/kernels/cen_peaks.py).
+extern "C" int cen2019_threads() { return kThreads; }
+extern "C" long long cen2019_smem_bytes(int nbp, int ntaps) {
+  return static_cast<long long>(row_smem_bytes(nbp, ntaps) + sizeof(float) * kThreads);
+}
 
-// Enqueue the four launches on `stream`.  `scratch` holds 3 * na * nbp
-// floats, `stats` 4 * na floats; the caller allocates both and the output.
-// Returns the first CUDA error (0 = cudaSuccess).  Does not synchronise.
-extern "C" int cen2019_scores_launch(const float* power, float* out, float* scratch,
-                                     float* stats, int na, int nbp, int min_bin,
-                                     int nb_valid, const float* taps, int ntaps,
-                                     float zq, void* stream) {
-  if (na < 1 || nbp < 1 || nbp > cen2019_max_row_bins() || ntaps < 1 ||
-      ntaps > kMaxTaps || ntaps % 2 == 0)
+// The current device's limits on co-resident blocks, in `out`: SMs, shared
+// memory per SM, shared memory the system reserves per block, the most
+// shared memory one block may opt in to, threads per SM.  Returns the CUDA
+// error (0 = cudaSuccess).
+extern "C" int cen2019_device_limits(int* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  const cudaDeviceAttr attrs[5] = {
+      cudaDevAttrMultiProcessorCount, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+      cudaDevAttrReservedSharedMemoryPerBlock, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+      cudaDevAttrMaxThreadsPerMultiProcessor};
+  for (int i = 0; i < 5 && e == cudaSuccess; ++i) e = cudaDeviceGetAttribute(out + i, attrs[i], dev);
+  return static_cast<int>(e);
+}
+
+// Enqueue the one cooperative launch on `stream`.  `stats` holds 2 * na
+// floats; the caller allocates it and the output.  Returns the CUDA error
+// (0 = cudaSuccess), cudaErrorCooperativeLaunchTooLarge when the card cannot
+// hold all na blocks at once, and leaves no error pending.  There is no
+// multi-launch fallback.  Does not synchronise.
+extern "C" int cen2019_scores_launch(const float* power, float* out, float* stats, int na,
+                                     int nbp, int min_bin, int nb_valid, const float* taps,
+                                     int ntaps, float zq, void* stream) {
+  if (na < 1 || nbp < 1 || ntaps < 1 || ntaps > kMaxTaps || ntaps % 2 == 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Taps t;
   t.n = ntaps;
   for (int i = 0; i < ntaps; ++i) t.w[i] = taps[i];
 
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t plane = static_cast<size_t>(na) * nbp;
-  float* sm = scratch;
-  float* ga = scratch + plane;
-  float* gs = scratch + 2 * plane;
-  float* row_mean = stats;
-  float* row_var = stats + na;
-  float* row_gmax = stats + 2 * na;
-  float* row_hsum = stats + 3 * na;
-  cudaError_t e;
-
-  cen_smooth_kernel<<<na, kThreads, 2 * nbp * sizeof(float), s>>>(
-      power, sm, ga, row_mean, row_var, nbp, min_bin, nb_valid, t);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  cen_gsmooth_kernel<<<na, kThreads, 0, s>>>(ga, gs, row_gmax, na, nbp);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  cen_h_kernel<<<na, kThreads, 0, s>>>(sm, gs, row_mean, row_gmax, row_hsum, na, nbp,
-                                       min_bin, nb_valid);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  cen_peaks_kernel<<<na, kThreads, nbp * (sizeof(float) + 2), s>>>(
-      sm, gs, row_mean, row_var, row_hsum, out, na, nbp, min_bin, nb_valid, zq);
-  return static_cast<int>(cudaGetLastError());
+  const auto kernel = ntaps == 13 ? cen2019_kernel<13> : cen2019_kernel<0>;
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  const size_t smem = row_smem_bytes(nbp, ntaps);
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             static_cast<int>(cudaSharedmemCarveoutMaxShared));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (e == cudaSuccess && static_cast<long long>(per_sm) * sms < na)
+    e = cudaErrorCooperativeLaunchTooLarge;
+  if (e == cudaSuccess) {
+    void* args[] = {&power, &out, &stats, &na, &nbp, &min_bin, &nb_valid, &t, &zq};
+    e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(na),
+                                    dim3(kThreads), args, smem,
+                                    static_cast<cudaStream_t>(stream));
+  }
+  const cudaError_t last = cudaGetLastError();  // clears a refused call
+  return static_cast<int>(e != cudaSuccess ? e : last);
 }

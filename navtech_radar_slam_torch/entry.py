@@ -13,8 +13,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from navtech_radar_slam_tpu.config import SlamConfig
+from navtech_radar_slam_torch.config import SlamConfig
 from navtech_radar_slam_torch.models import odometry as odo_mod
+from navtech_radar_slam_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 def tiny_cfg() -> SlamConfig:
@@ -31,7 +32,8 @@ def tiny_cfg() -> SlamConfig:
     )
 
 
-def entry(device: torch.device | str = "cpu"):
+def entry(device: torch.device | str = DEFAULT_DEVICE):
+    device = resolve_device(device)
     cfg = tiny_cfg()
     na, nb = cfg.radar.num_azimuths, cfg.radar.padded_range_bins
     azimuths = torch.as_tensor(odo_mod.default_azimuths(cfg), device=device)

@@ -18,8 +18,9 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from navtech_radar_slam_tpu.config import SlamConfig
+from navtech_radar_slam_torch.config import SlamConfig
 from navtech_radar_slam_torch.ops import cen2019, features, registration
+from navtech_radar_slam_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from navtech_radar_slam_torch.utils.geometry import se2_mul_np
 
 
@@ -256,9 +257,9 @@ class RadarOdometry:
     feature cloud (``/orora/cloud_local``)."""
 
     def __init__(self, cfg: Optional[SlamConfig] = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = DEFAULT_DEVICE):
         self.cfg = cfg or SlamConfig()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.prev: Optional[ScanFeatures] = None
         self.pose = np.zeros(3)          # accumulated [x, y, theta], f64
         self.num_scans = 0

@@ -27,8 +27,9 @@ import numpy as np
 import torch
 from torch.func import vjp
 
-from navtech_radar_slam_tpu.config import PgoConfig
+from navtech_radar_slam_torch.config import PgoConfig
 from navtech_radar_slam_torch.utils import geometry as geo
+from navtech_radar_slam_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 #: CG iterations between host reads of the stop flag
 _CG_CHECK_EVERY = 8
@@ -51,7 +52,8 @@ class GraphArrays(NamedTuple):
     gps_valid: torch.Tensor    # (N,) bool
 
 
-def empty_graph(cfg: PgoConfig, device="cpu", dtype=torch.float32) -> GraphArrays:
+def empty_graph(cfg: PgoConfig, device=DEFAULT_DEVICE, dtype=torch.float32) -> GraphArrays:
+    device = resolve_device(device)
     n, nl = cfg.max_nodes, cfg.max_loop_edges
     eye = torch.eye(4, dtype=dtype, device=device)
     return GraphArrays(
@@ -288,9 +290,9 @@ class PoseGraph:
     """Host wrapper: accumulates factors into the padded arrays and re-solves
     warm-started, like the reference's per-keyframe iSAM2 update."""
 
-    def __init__(self, cfg: PgoConfig, device="cpu"):
+    def __init__(self, cfg: PgoConfig, device=DEFAULT_DEVICE):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.g = empty_graph(cfg, self.device)
         self._solve = make_bucketed_solver(cfg)
         self.num_nodes = 0

@@ -39,13 +39,14 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from navtech_radar_slam_tpu.config import SlamConfig
+from navtech_radar_slam_torch.config import SlamConfig
 from navtech_radar_slam_torch.models import posegraph as pg
 from navtech_radar_slam_torch.models.odometry import RadarOdometry
 from navtech_radar_slam_torch.ops import icp as icp_ops
 from navtech_radar_slam_torch.ops import scancontext as sc_ops
 from navtech_radar_slam_torch.ops.voxel import voxel_dedup_mask
 from navtech_radar_slam_torch.utils import geometry as geo
+from navtech_radar_slam_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 class LoopEvent(NamedTuple):
@@ -212,9 +213,9 @@ class SlamEngine:
     """Host orchestrator of the per-scan SLAM path on one ``device``."""
 
     def __init__(self, cfg: Optional[SlamConfig] = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = DEFAULT_DEVICE):
         self.cfg = c = cfg or SlamConfig()
-        self.device = dev = torch.device(device)
+        self.device = dev = resolve_device(device)
         self.odometry = RadarOdometry(c, device=dev)
 
         K, M = c.features.max_features, c.keyframes.max_keyframes

@@ -21,7 +21,7 @@ from typing import NamedTuple, Sequence
 import torch
 import torch.nn.functional as F
 
-from navtech_radar_slam_tpu.config import FeatureConfig, RadarConfig
+from navtech_radar_slam_torch.config import FeatureConfig, RadarConfig
 from navtech_radar_slam_torch.ops.kernels import cen_peaks
 
 

@@ -12,7 +12,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from navtech_radar_slam_tpu.config import FeatureConfig
+from navtech_radar_slam_torch.config import FeatureConfig
 
 
 def _radial_frame(xy: torch.Tensor):

@@ -24,7 +24,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from navtech_radar_slam_tpu.config import IcpConfig
+from navtech_radar_slam_torch.config import IcpConfig
 from navtech_radar_slam_torch.ops.kernels import nn_dist
 from navtech_radar_slam_torch.utils import geometry as geo
 

@@ -3,8 +3,9 @@
 Replaces the TPU kernel ``navtech_radar_slam_tpu/ops/pallas/cen_peaks.py::
 cen2019_scores_pallas``; its plain PyTorch twin is
 ``navtech_radar_slam_torch.ops.cen2019.cen2019_scores``.  The design note
-(what bounds it on the card, and the four-launch layout) is at the top of the
-CUDA source.
+(what bounds it on the card, and the one cooperative launch with a block
+per row) is at the top of the CUDA source; ``smem_bytes`` and
+``max_row_bins`` are the host side of it.
 
 Built at first use by ``ops.kernels.build.KernelLibrary`` (nvcc, sm_90a,
 a plain C interface loaded with ctypes); a failed build raises, nothing
@@ -13,27 +14,89 @@ falls back.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-
+import functools
 import torch
 
-from navtech_radar_slam_tpu.config import FeatureConfig, RadarConfig
+from navtech_radar_slam_torch.config import FeatureConfig, RadarConfig
 from navtech_radar_slam_torch.ops.kernels.build import KernelLibrary
 
 #: kernel launches by ``cen2019_scores_cuda`` in this process (one per call)
 launch_count = 0
 
+#: threads per block, one block per azimuth row (kThreads in the source)
+THREADS = 256
+#: shared memory per range bin: the rows ``a`` and ``w``, float32 each
+SMEM_PER_BIN = 8
+#: taps whose count the source knows at compile time (the 2-bin sigma)
+FIXED_TAPS = 13
+#: the static reduction scratch of a block, one float per thread
+SMEM_STATIC = 4 * THREADS
+#: cudaErrorCooperativeLaunchTooLarge: the card cannot hold every row at once
+_TOO_LARGE = 720
+
+
+def smem_bytes(nbp: int, ntaps: int = FIXED_TAPS) -> int:
+    """Shared memory of one block (dynamic and static) for rows of ``nbp``
+    bins smoothed by ``ntaps`` taps: the two rows, ``ntaps // 2`` zeros on
+    each side of one of them, and the reduction scratch."""
+    return SMEM_PER_BIN * nbp + 4 * (ntaps - 1) + SMEM_STATIC
+
+
+def max_row_bins(na: int, ntaps: int, sms: int, smem_per_sm: int, reserved_per_block: int,
+                 optin_per_block: int, threads_per_sm: int) -> int:
+    """Longest row the one-launch layout takes for ``na`` rows on a card
+    with these limits: one block per row and every block resident at once,
+    so each SM holds ceil(na / sms) blocks and splits its shared memory among
+    them.  Registers are not counted here; the launch's occupancy check has
+    the last word."""
+    per_sm = -(-na // sms)
+    if per_sm * THREADS > threads_per_sm:
+        return 0
+    per_block = min(smem_per_sm // per_sm - reserved_per_block, optin_per_block)
+    return max((per_block - smem_bytes(0, ntaps)) // SMEM_PER_BIN, 0)
+
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.cen2019_scores_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
         ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.cen2019_max_row_bins.argtypes = []
-    lib.cen2019_max_row_bins.restype = ctypes.c_int
+    lib.cen2019_device_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.cen2019_device_limits.restype = ctypes.c_int
+    lib.cen2019_threads.argtypes, lib.cen2019_threads.restype = [], ctypes.c_int
+    lib.cen2019_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.cen2019_smem_bytes.restype = ctypes.c_longlong
+    if (lib.cen2019_threads() != THREADS
+            or lib.cen2019_smem_bytes(3456, FIXED_TAPS) != smem_bytes(3456, FIXED_TAPS)
+            or lib.cen2019_smem_bytes(3456, 7) != smem_bytes(3456, 7)):
+        raise RuntimeError("cen_peaks: the source's launch constants differ from the wrapper's")
 
 
 LIBRARY = KernelLibrary("cen_peaks", _bind)
+
+
+@functools.lru_cache(maxsize=None)
+def _taps(fcfg: FeatureConfig) -> tuple:
+    """The smoothing taps of ``fcfg`` as a ctypes array and their count."""
+    # the taps live beside the twin; imported here because ops.cen2019
+    # imports this module
+    from navtech_radar_slam_torch.ops.cen2019 import smoothing_taps
+
+    taps = smoothing_taps(fcfg).tolist()
+    return (ctypes.c_float * len(taps))(*taps), len(taps)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_limits(index: int) -> tuple:
+    """``max_row_bins``'s card limits of device ``index`` (the current
+    device when called)."""
+    out = (ctypes.c_int * 5)()
+    err = LIBRARY.load().cen2019_device_limits(out)
+    if err != 0:
+        raise RuntimeError(f"cen2019_scores_cuda: device query failed, CUDA error {err}")
+    return tuple(out)
 
 
 def cen2019_scores_cuda(power: torch.Tensor, fcfg: FeatureConfig,
@@ -44,12 +107,9 @@ def cen2019_scores_cuda(power: torch.Tensor, fcfg: FeatureConfig,
     Launches on the current stream and does not synchronise.  Raises on any
     input the kernel does not take and on any launch error."""
     global launch_count
-    # the taps live beside the twin; imported here because ops.cen2019
-    # imports this module
-    from navtech_radar_slam_torch.ops.cen2019 import smoothing_taps
-
-    if power.device.type != "cuda":
-        raise ValueError(f"cen2019_scores_cuda: needs a CUDA tensor, got {power.device}")
+    dev = power.device
+    if dev.type != "cuda":
+        raise ValueError(f"cen2019_scores_cuda: needs a CUDA tensor, got {dev}")
     if power.dtype != torch.float32:
         raise TypeError(f"cen2019_scores_cuda: needs float32, got {power.dtype}")
     if power.dim() != 2 or not power.is_contiguous():
@@ -57,22 +117,24 @@ def cen2019_scores_cuda(power: torch.Tensor, fcfg: FeatureConfig,
                          f"got shape {tuple(power.shape)}")
     lib = LIBRARY.load()
     na, nbp = power.shape
-    if nbp > lib.cen2019_max_row_bins():
-        raise ValueError(f"cen2019_scores_cuda: rows of {nbp} bins exceed "
-                         f"{lib.cen2019_max_row_bins()}")
-    taps = smoothing_taps(fcfg).tolist()
-    taps_c = (ctypes.c_float * len(taps))(*taps)
-    out = torch.empty_like(power)
-    scratch = torch.empty((3, na, nbp), dtype=torch.float32, device=power.device)
-    stats = torch.empty((4, na), dtype=torch.float32, device=power.device)
-    with torch.cuda.device(power.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    same = dev.index == torch.cuda.current_device()
+    taps, ntaps = _taps(fcfg)
+    with contextlib.nullcontext() if same else torch.cuda.device(dev):
+        limit = max_row_bins(na, ntaps, *_device_limits(dev.index))
+        if nbp > limit:
+            raise ValueError(f"cen2019_scores_cuda: {na} rows of {nbp} bins; this card "
+                             f"holds every row at once only up to {limit} bins")
+        out = torch.empty_like(power)
+        stats = torch.empty(2 * na, dtype=torch.float32, device=dev)
         err = lib.cen2019_scores_launch(
-            power.data_ptr(), out.data_ptr(), scratch.data_ptr(), stats.data_ptr(),
-            na, nbp, fcfg.min_range_bins, rcfg.num_range_bins,
-            taps_c, len(taps), float(fcfg.peak_zq), stream,
-        )
+            power.data_ptr(), out.data_ptr(), stats.data_ptr(), na, nbp, fcfg.min_range_bins,
+            rcfg.num_range_bins, taps, ntaps, float(fcfg.peak_zq),
+            torch.cuda.current_stream().cuda_stream)
+    if err == _TOO_LARGE:
+        raise RuntimeError(f"cen2019_scores_cuda: the card cannot hold all {na} row blocks "
+                           f"of {nbp} bins at once (cooperative launch too large)")
     if err != 0:
         raise RuntimeError(f"cen2019_scores_cuda: launch failed, CUDA error {err}")
     launch_count += 1
     return out
+

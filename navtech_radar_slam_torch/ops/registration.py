@@ -17,7 +17,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from navtech_radar_slam_tpu.config import RegistrationConfig
+from navtech_radar_slam_torch.config import RegistrationConfig
 from navtech_radar_slam_torch.ops.features import MatchSet, top_k_stable
 
 

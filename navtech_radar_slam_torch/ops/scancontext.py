@@ -21,7 +21,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from navtech_radar_slam_tpu.config import ScanContextConfig
+from navtech_radar_slam_torch.config import ScanContextConfig
 from navtech_radar_slam_torch.ops.kernels import sc_corr
 
 _TWO_PI = 2.0 * math.pi

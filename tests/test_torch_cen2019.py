@@ -17,6 +17,7 @@ from navtech_radar_slam_tpu.data import RadarSimulator
 from navtech_radar_slam_tpu.data.packing import pack4, unpack4_reference
 from navtech_radar_slam_tpu.ops import cen2019 as jcen
 from navtech_radar_slam_tpu.ops.pallas.cen_peaks import cen2019_scores_pallas
+from navtech_radar_slam_torch.models.odometry import decode_power
 from navtech_radar_slam_torch.ops import cen2019 as tcen
 from navtech_radar_slam_torch.ops.kernels import cen_peaks
 from torch_parity_util import assert_score_maps_close, np_, peak_set, t
@@ -183,3 +184,70 @@ def test_cen2019_kernel_matches_twin_on_cuda(scan, cuda_device):
         g_set = peak_set(g.azimuth_idx, g.range_bin, g.valid)
         w_set = peak_set(w.azimuth_idx, w.range_bin, w.valid)
         assert len(g_set ^ w_set) <= 0.01 * len(w_set)
+
+
+# An H100 SXM's limits, as cen2019_device_limits reads them: SMs, shared
+# memory per SM, reserved per block, opt-in per block, threads per SM.
+H100 = (132, 233472, 1024, 232448, 2048)
+
+
+def test_cen2019_launch_geometry():
+    """The host side of K1's one cooperative launch at the main path's
+    shapes: a block per row with 28 KB of shared memory, four blocks on an
+    SM for 400 rows, and rows up to 7,034 bins there (the four-launch design
+    took 6,144)."""
+    ntaps = tcen.smoothing_taps(CFG.features).numel()
+    assert ntaps == cen_peaks.FIXED_TAPS == 13
+    assert cen_peaks.smem_bytes(3456) == 8 * 3456 + 4 * 12 + 4 * 256
+    per_sm = -(-400 // H100[0])
+    assert per_sm == 4
+    assert per_sm * (cen_peaks.smem_bytes(3456) + H100[2]) <= H100[1]
+    bins = cen_peaks.max_row_bins(400, ntaps, *H100)
+    assert bins == 7034 and bins >= CFG.radar.padded_range_bins
+    assert per_sm * (cen_peaks.smem_bytes(bins) + H100[2]) <= H100[1]
+    assert per_sm * (cen_peaks.smem_bytes(bins + 1) + H100[2]) > H100[1]
+    # wider smoothing pads more zeros
+    assert cen_peaks.max_row_bins(400, 25, *H100) == 7034 - 6
+    # one block per SM: the opt-in limit of one block sets the row
+    assert cen_peaks.max_row_bins(132, ntaps, *H100) == (232448 - 1024 - 48) // 8
+    # eight blocks of 256 threads fill an SM's 2048 threads; nine do not fit
+    assert cen_peaks.max_row_bins(8 * 132, ntaps, *H100) > 0
+    assert cen_peaks.max_row_bins(8 * 132 + 1, ntaps, *H100) == 0
+
+
+def _assert_kernel_equals_twin(x, rcfg=CFG.radar, fcfg=CFG.features):
+    got = cen_peaks.cen2019_scores_cuda(x, fcfg, rcfg)
+    want = tcen.cen2019_scores(x, fcfg, rcfg)
+    torch.cuda.synchronize()
+    g, w = np_(got), np_(want)
+    assert np.isfinite(w).sum() > 0
+    np.testing.assert_array_equal(np.isfinite(g), np.isfinite(w))
+    np.testing.assert_array_equal(g[np.isfinite(w)], w[np.isfinite(w)])
+
+
+@pytest.mark.cuda
+def test_cen2019_kernel_row_above_old_limit_on_cuda(scan, cuda_device):
+    """K1 on 400 rows of 6,912 bins, past the four-launch design's 6,144:
+    the same map as the twin, and one bin past the card's limit raises.
+    Also with 7 taps (a 1-bin sigma), which takes the kernel's run-time tap
+    count."""
+    wide = np.ascontiguousarray(np.concatenate([scan, scan[::-1]], axis=1))
+    rcfg = dataclasses.replace(CFG.radar, num_range_bins=2 * CFG.radar.num_range_bins)
+    assert wide.shape == (400, 6912)
+    _assert_kernel_equals_twin(t(wide, cuda_device), rcfg)
+    narrow = dataclasses.replace(CFG.features, smooth_sigma_bins=1.0)
+    assert tcen.smoothing_taps(narrow).numel() == 7
+    _assert_kernel_equals_twin(t(wide, cuda_device), rcfg, narrow)
+    with pytest.raises(ValueError, match="7034 bins"):   # an H100's limit at 400 rows
+        cen_peaks.cen2019_scores_cuda(torch.zeros((400, 7035), device=cuda_device),
+                                      CFG.features, rcfg)
+
+
+@pytest.mark.cuda
+def test_cen2019_kernel_through_4bit_path_on_cuda(scan, cuda_device):
+    """K1 on a scan that came over the 4-bit wire format and was decoded on
+    the card (many tied smoothed powers): the same map as the twin."""
+    u8 = (np.clip(scan, 0, 1) * 255).astype(np.uint8)
+    x = decode_power(t(pack4(u8), cuda_device), packed=True)
+    assert x.shape == scan.shape and x.dtype == torch.float32
+    _assert_kernel_equals_twin(x)

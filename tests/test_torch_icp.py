@@ -168,3 +168,86 @@ def test_nn_dist_kernel_matches_plain_on_cuda(cuda_device):  # noqa: F811
     np.testing.assert_array_equal(np_(gd), np_(wd))
     nd, ni = nn_dist.nearest_neighbors_cuda(src, tgt, torch.zeros_like(valid))
     assert torch.isinf(nd).all() and (ni == 0).all()
+
+
+@pytest.mark.parametrize("nq,nt", [(1024, 8192), (1, 1), (33, 2047), (1024, 8193),
+                                   (1, 0), (300, 255), (5, 100_000)])
+def test_nn_dist_launch_geometry(nq, nt):
+    """The host side of K3's grid: query tiles of 16, at most 8 target
+    chunks (one cluster), every target in exactly one chunk, no chunk below
+    256 targets unless there is only one; at the ICP's (1024, 8192) at least
+    two blocks for each of the H100's 132 SMs."""
+    tiles, chunks, chunk_len = nn_dist.launch_geometry(nq, nt)
+    assert tiles == -(-nq // nn_dist.QUERY_TILE) and tiles * nn_dist.QUERY_TILE >= nq
+    assert 1 <= chunks <= nn_dist.MAX_CHUNKS and chunk_len >= 1
+    assert chunks * chunk_len >= nt
+    if nt > 0:
+        assert (chunks - 1) * chunk_len < nt
+    if chunks > 1:
+        assert chunk_len >= nn_dist.MIN_CHUNK
+    if (nq, nt) == (1024, 8192):
+        assert (tiles, chunks, chunk_len) == (64, 8, 1024)
+        assert tiles * chunks >= 2 * 132
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [1, 33, 1024])
+@pytest.mark.parametrize("nt", [1, 2047, 8192, 8193])
+def test_nn_dist_kernel_shapes_on_cuda(cuda_device, nq, nt):  # noqa: F811
+    """K3 equals its plain version bit for bit across the chunk and tile
+    edges: a single target, a ragged last chunk, the ICP's shape and one
+    target past it."""
+    rng = np.random.default_rng(nq * 10_007 + nt)
+    src = t(rng.uniform(-150, 150, (nq, 2)).astype(np.float32), cuda_device)
+    tgt = t(rng.uniform(-150, 150, (nt, 2)).astype(np.float32), cuda_device)
+    valid = t(rng.random(nt) >= 0.2 if nt > 1 else np.ones(nt, bool), cuda_device)
+    gd, gi = nn_dist.nearest_neighbors_cuda(src, tgt, valid)
+    wd, wi = ticp.nearest_neighbors_plain(src, tgt, valid)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(np_(gi), np_(wi))
+    np.testing.assert_array_equal(np_(gd), np_(wd))
+
+
+@pytest.mark.cuda
+def test_nn_dist_kernel_first_index_wins_across_chunks_on_cuda(cuda_device):  # noqa: F811
+    """Duplicate targets in different chunks (cluster ranks) and slices: the
+    first valid index wins, as in argmin."""
+    nt = 8192
+    _, _, chunk_len = nn_dist.launch_geometry(1024, nt)
+    rng = np.random.default_rng(17)
+    tgt = rng.uniform(-150, 150, (nt, 2)).astype(np.float32)
+    valid = np.ones(nt, bool)
+    groups = [  # indices holding one point; the first valid one must win
+        [3 * chunk_len + 5, 6 * chunk_len + 1, 7 * chunk_len + 900],
+        [chunk_len - 1, chunk_len, 2 * chunk_len + 31],
+        [40, 41, 4 * chunk_len + 40],
+        [2 * chunk_len + 7, 5 * chunk_len + 7],      # the first is invalid
+    ]
+    valid[groups[3][0]] = False
+    src = rng.uniform(-150, 150, (1024, 2)).astype(np.float32)
+    pts = np.asarray([[200.0, 200.0], [-200.0, 200.0], [200.0, -200.0], [-200.0, -200.0]],
+                     np.float32)
+    for g, p in zip(groups, pts):
+        tgt[g] = p
+    src[:4] = pts + np.float32(0.5)   # outside the other targets' square
+    gd, gi = nn_dist.nearest_neighbors_cuda(t(src, cuda_device), t(tgt, cuda_device),
+                                            t(valid, cuda_device))
+    wd, wi = ticp.nearest_neighbors_plain(t(src, cuda_device), t(tgt, cuda_device),
+                                          t(valid, cuda_device))
+    torch.cuda.synchronize()
+    assert np_(gi)[:4].tolist() == [groups[0][0], groups[1][0], groups[2][0], groups[3][1]]
+    np.testing.assert_array_equal(np_(gi), np_(wi))
+    np.testing.assert_array_equal(np_(gd), np_(wd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nt", [(1, 1), (33, 2047), (1024, 8192), (1024, 8193)])
+def test_nn_dist_kernel_all_invalid_on_cuda(cuda_device, nq, nt):  # noqa: F811
+    """No valid target: +inf and index 0 for every query."""
+    rng = np.random.default_rng(nt)
+    src = t(rng.uniform(-150, 150, (nq, 2)).astype(np.float32), cuda_device)
+    tgt = t(rng.uniform(-150, 150, (nt, 2)).astype(np.float32), cuda_device)
+    gd, gi = nn_dist.nearest_neighbors_cuda(src, tgt, torch.zeros(nt, dtype=torch.bool,
+                                                                  device=cuda_device))
+    torch.cuda.synchronize()
+    assert torch.isinf(gd).all() and (gd > 0).all() and (gi == 0).all()

@@ -89,7 +89,7 @@ def test_odometry_step_from_jax_carry(scans):
     jo.process(sc[1])
     carry = jax_odometry_carry(jo)
 
-    to = todo.RadarOdometry(CFG)
+    to = todo.RadarOdometry(CFG, device="cpu")
     to.load_state(carry)
     back = to.to_numpy()
     for k in SCAN_FIELDS:
@@ -110,7 +110,7 @@ def test_radar_odometry_run_matches_jax(scans):
     """Five scans through both accumulators: per-step increments within
     1e-3 m / 1e-4 rad, the same ok flags, poses within 2e-3 m."""
     gt, sc = scans
-    jo, to = jodo.RadarOdometry(CFG), todo.RadarOdometry(CFG)
+    jo, to = jodo.RadarOdometry(CFG), todo.RadarOdometry(CFG, device="cpu")
     for s in sc[:5]:
         pj, _ = jo.process(s)
         pt, _ = to.process(s)
@@ -155,7 +155,7 @@ def test_odometry_sequence_matches_stepwise(scans):
     """The streamed chunk loop gives the per-scan increments of the host
     accumulator (same arithmetic, so 1e-6)."""
     gt, sc = scans
-    to = todo.RadarOdometry(CFG)
+    to = todo.RadarOdometry(CFG, device="cpu")
     rels_step = []
     for s in sc:
         to.process(s)
@@ -212,7 +212,7 @@ def test_se2_numpy_helpers_match_jax():
 
 def test_state_round_trip(scans):
     gt, sc = scans
-    to = todo.RadarOdometry(CFG)
+    to = todo.RadarOdometry(CFG, device="cpu")
     to.process(sc[0])
     to.process(sc[1])
     d = to.to_numpy()
@@ -220,7 +220,7 @@ def test_state_round_trip(scans):
     assert feats.valid.dtype == torch.bool and feats.xy.dtype == torch.float32
     for k in SCAN_FIELDS:
         np.testing.assert_array_equal(state.to_numpy(feats)[k], d["prev"][k])
-    fresh = todo.RadarOdometry(CFG)
+    fresh = todo.RadarOdometry(CFG, device="cpu")
     fresh.load_state(d)
     p1, _ = to.process(sc[2])
     p2, _ = fresh.process(sc[2])

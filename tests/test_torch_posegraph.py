@@ -49,7 +49,7 @@ class Both:
     def __init__(self, cfg=CFG):
         self.cfg = cfg
         self.j = jpg.PoseGraph(cfg)
-        self.t = tpg.PoseGraph(cfg)
+        self.t = tpg.PoseGraph(cfg, device="cpu")
 
     def add_node(self, pose, odom_meas=None):
         self.j.add_node(pose, odom_meas=odom_meas)
@@ -221,7 +221,7 @@ def test_chain_without_loops_keeps_odometry():
 
 def test_capacity_guard_and_grow():
     small = dataclasses.replace(CFG, max_nodes=2, max_loop_edges=1)
-    g = tpg.PoseGraph(small)
+    g = tpg.PoseGraph(small, device="cpu")
     g.add_node(np.eye(4))
     g.add_node(_se3(1.0, 0.0, 0.0), odom_meas=_se3(1.0, 0.0, 0.0))
     g.add_loop(0, 1, _se3(1.0, 0.0, 0.0))
