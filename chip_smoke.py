@@ -17,25 +17,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
      config1_odometry_only.json) over 24 full-size scans of a circuit, with
      every launch counter reset just before and read just after;
   5. K1's times against its twin, and the per-scan RadarOdometry.process time;
-  6. K2 against its plain version at full size: a query and a (4096, 20, 60)
-     bank of make_scancontext descriptors of simulator landmark clouds, 400
-     rows live and the rest zero;
+  6. K2 against its plain version (max abs err <= 2e-5, the same best row
+     and shift): a query and a (4096, 20, 60) bank of make_scancontext
+     descriptors of simulator landmark clouds, 400 rows live and the rest
+     zero; a 4096-row bank with every row live (the 400 descriptors, then
+     copies of them under seeded circular column rolls with a tenth of
+     their cells cleared); its first 1 and 30 rows and 4097 rows; a query
+     with five empty columns, and an all-zero query (every distance 1);
   7. K3 against its plain version at (1024, 8192), 20 % of the targets
      invalid, with every target tied across the target chunks, and with
      every target invalid: the same indices and d2, exactly;
   8. the full-SLAM path: SlamEngine(SlamConfig()) over 60 motion-distorted
      full-size scans of a circuit, every launch counter reset just before
      and read just after; checks the keyframes, K2 once per detecting
-     keyframe, K3 at least twice per verified candidate, >= 12 accepted
-     loops, a full pose-graph solve, ATE < 1 % of the path and a finite map;
-  9. times: K2 and K3 against their plain versions, and the per-scan
-     SlamEngine.process time split into odometry, keyframe step and refine;
+     keyframe on the searchable bank prefix (max(keyframes - 30, 1) rows),
+     K3 at least twice per verified candidate, >= 12 accepted loops, a full
+     pose-graph solve, ATE < 1 % of the path and a finite map;
+  9. times: K2 (on the all-live bank) and K3 against their plain versions,
+     and the per-scan SlamEngine.process time split into odometry,
+     keyframe step and refine;
  10. for each kernel, the device time per launch (CUDA events around 200
      back-to-back launches, the host queued ahead of the card behind a
      sleep kernel), its bound (the larger of the bytes it must move over
      the H100's 3.35 TB/s and its fp32 operations over 67 TFLOP/s, from
      this run's shapes and data), the share of the bound, the launches on
      each path, and the device kernels of one call (torch.profiler): one.
+     K2's report is at the 4096-row all-live bank; lines before it give
+     K2's device ms and bound at the SLAM run's largest prefix (30 rows)
+     and at the 400-live bank.
 
 The line before the last is the kernel report
 {"kernels": [{"name", "route", "source", "replaces", "launches",
@@ -142,6 +151,48 @@ def sc_inputs(cfg: SlamConfig, sim: RadarSimulator, dev) -> tuple:
     return desc(query_pose), bank
 
 
+def all_live_bank(bank: torch.Tensor, n_live: int) -> torch.Tensor:
+    """``bank`` with every row live: rows 0 .. n_live - 1 as they are, each
+    later row one of them under a seeded circular column roll with a seeded
+    tenth of its cells cleared, so no two rows tie.  Made on the device."""
+    rng = np.random.default_rng(17)
+    n, nr, ns = bank.shape
+    roll = rng.integers(0, ns, n)
+    roll[:n_live] = 0
+    keep = rng.random((n, nr, ns), dtype=np.float32) >= 0.1
+    keep[:n_live] = True
+    dev = bank.device
+    # np.roll(row, s)[:, c] = row[:, (c - s) mod S]
+    col = torch.as_tensor((np.arange(ns)[None, :] - roll[:, None]) % ns, device=dev)
+    src = bank[torch.arange(n, device=dev) % n_live]
+    return torch.gather(src, 2, col[:, None, :].expand(n, nr, ns)) * torch.as_tensor(
+        keep, device=dev)
+
+
+def check_k2(label: str, query: torch.Tensor, bank: torch.Tensor) -> float:
+    """K2 against its plain version: max abs err <= SC_ATOL and the same
+    best (row, shift), and every distance 1 for an all-zero query; returns
+    the error."""
+    got = sc_corr.sc_shift_distances_cuda(query, bank)
+    want = scancontext.sc_shift_distance_matrix_plain(query, bank)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ns = bank.shape[2]
+    g, w = int(torch.argmin(got)), int(torch.argmin(want))
+    row_best = torch.sort(want.min(dim=1).values).values
+    runner_up = f"{float(row_best[1]):.5f}" if len(row_best) > 1 else "none"
+    print(f"  {label}, bank {tuple(bank.shape)}: max abs err {err:.3g}, best row "
+          f"{g // ns} / {w // ns}, shift {g % ns} / {w % ns}, best distance "
+          f"{float(row_best[0]):.5f}, next row's {runner_up}")
+    if err > SC_ATOL:
+        raise AssertionError(f"K2 differs by {err} > {SC_ATOL} ({label})")
+    if g != w:
+        raise AssertionError(f"K2's best row or shift differs from the plain version's ({label})")
+    if not bool(query.any()) and not bool((got == 1).all()):
+        raise AssertionError(f"K2 with an all-zero query: want every distance 1 ({label})")
+    return err
+
+
 def median_ms(fn, runs: int) -> float:
     """Median over ``runs`` calls, each fenced by CUDA events."""
     times = []
@@ -245,7 +296,15 @@ def slam_path(cfg: SlamConfig, sim: RadarSimulator, dev, name_power: str) -> dic
         n_icp[0] += 1
         return icp_se2(*args, **kwargs)
 
+    k2_rows = []   # bank rows of each K2 launch
+    k2 = sc_corr.sc_shift_distances_cuda
+
+    def recorded_k2(query, bank):
+        k2_rows.append(bank.shape[0])
+        return k2(query, bank)
+
     slam_mod.icp_ops.icp_se2 = counted_icp
+    sc_corr.sc_shift_distances_cuda = recorded_k2
     per_scan = []
     try:
         for kern in KERNELS:
@@ -263,12 +322,15 @@ def slam_path(cfg: SlamConfig, sim: RadarSimulator, dev, name_power: str) -> dic
         launches = {kern.__name__.rsplit(".", 1)[1]: kern.launch_count for kern in KERNELS}
     finally:
         slam_mod.icp_ops.icp_se2 = icp_se2
+        sc_corr.sc_shift_distances_cuda = k2
     world_map = eng.aggregate_map()
 
     c = cfg.scancontext
-    n_detect = sum(1 for k in range(eng.num_keyframes)
-                   if (k + 1) % c.detect_every_n_keyframes == 0
-                   and (k + 1) > c.num_exclude_recent)
+    detecting = [k + 1 for k in range(eng.num_keyframes)
+                 if (k + 1) % c.detect_every_n_keyframes == 0
+                 and (k + 1) > c.num_exclude_recent]
+    n_detect = len(detecting)
+    want_rows = [max(nk - c.num_exclude_recent, 1) for nk in detecting]
     gt_rel = np.asarray([se2_between_np(gt[0], g) for g in gt[:N_SLAM_SCANS]])
     path = float(np.sum(np.linalg.norm(np.diff(gt_rel[:, :2], axis=0), axis=1)))
     n = min(len(traj), len(gt_rel))
@@ -280,6 +342,8 @@ def slam_path(cfg: SlamConfig, sim: RadarSimulator, dev, name_power: str) -> dic
           f"{n_detect} detecting, {n_icp[0]} candidates verified by ICP, "
           f"{len(loops)} loops accepted {loops}")
     print(f"  launches {launches}, dispatch counts {dict(eng.dispatch_counts)}")
+    print(f"  K2 bank rows per launch {k2_rows} (searchable prefix, "
+          f"max(keyframes - {c.num_exclude_recent}, 1))")
     print(f"  ATE {ate:.4f} m (odometry alone {ate_odo:.4f} m) over a {path:.2f} m "
           f"path; map {len(world_map)} points")
     if eng.num_keyframes != N_SLAM_SCANS:
@@ -289,6 +353,8 @@ def slam_path(cfg: SlamConfig, sim: RadarSimulator, dev, name_power: str) -> dic
     if launches["sc_corr"] != n_detect:
         raise AssertionError(f"K2 launched {launches['sc_corr']} times for "
                              f"{n_detect} detecting keyframes")
+    if k2_rows != want_rows:
+        raise AssertionError(f"K2 scored {k2_rows} bank rows, expected {want_rows}")
     if n_icp[0] == 0 or launches["nn_dist"] < 2 * n_icp[0]:
         raise AssertionError(f"K3 launched {launches['nn_dist']} times for "
                              f"{n_icp[0]} verified candidates")
@@ -402,22 +468,24 @@ def main() -> None:
           f"(min {1e3 * min(step_s):.3f}, max {1e3 * max(step_s):.3f}) over "
           f"{len(step_s)} steps, host clock after synchronize [{name_power}]")
 
-    # 6. K2 against its plain version, full size
+    # 6. K2 against its plain version
     query, bank = sc_inputs(cfg, sim, dev)
-    got = sc_corr.sc_shift_distances_cuda(query, bank)
-    want = scancontext.sc_shift_distance_matrix_plain(query, bank)
+    t0 = time.perf_counter()
+    live_bank = all_live_bank(bank, 400)
     torch.cuda.synchronize()
-    k2_err = float((got - want).abs().max())
-    g_row, w_row = int(torch.argmin(got.min(dim=1).values)), int(torch.argmin(want.min(dim=1).values))
-    g_shift, w_shift = int(torch.argmin(got[g_row])), int(torch.argmin(want[w_row]))
-    live = int((bank.abs().sum(dim=(1, 2)) > 0).sum())
-    print(f"K2 vs plain, query (20, 60), bank {tuple(bank.shape)} ({live} rows live): "
-          f"max abs err {k2_err:.3g}, best row {g_row} / {w_row}, shift "
-          f"{g_shift} / {w_shift}, best distance {float(got[g_row, g_shift]):.4f}")
-    if k2_err > SC_ATOL:
-        raise AssertionError(f"K2 differs by {k2_err} > {SC_ATOL}")
-    if (g_row, g_shift) != (w_row, w_shift):
-        raise AssertionError("K2's best row or shift differs from the plain version's")
+    print(f"K2 vs plain, query (20, 60); all-live bank made in "
+          f"{1e3 * (time.perf_counter() - t0):.1f} ms:")
+    hollow = query.clone()
+    hollow[:, 5:10] = 0.0
+    k2_err = max(
+        check_k2("400 live, 3696 zero", query, bank),
+        check_k2("all live", query, live_bank),
+        check_k2("first row", query, live_bank[:1]),
+        check_k2("first 30 rows", query, live_bank[:30]),
+        check_k2("4097 rows", query, torch.cat([live_bank, live_bank[-1:].flip(1)])),
+        check_k2("query with 5 empty columns", hollow, live_bank),
+        check_k2("all-zero query", torch.zeros_like(query), live_bank),
+    )
 
     # 7. K3 against its plain version at (1024, 8192)
     rng = np.random.default_rng(11)
@@ -450,12 +518,14 @@ def main() -> None:
     launches = slam_path(cfg, sim, dev, name_power)
 
     # 9. K2 and K3 times at the main path's shapes
-    k2_ms, k2_plain, pa, pb = kernel_vs_plain(
-        lambda: sc_corr.sc_shift_distances_cuda(query, bank),
-        lambda: scancontext.sc_shift_distance_matrix_plain(query, bank))
-    print(f"K2 sc_shift_distances (20, 60) x {tuple(bank.shape)}: kernel {k2_ms:.4f} ms, "
-          f"plain {k2_plain:.4f} ms (halves {pa:.4f} / {pb:.4f}), median of "
-          f"{TIMED_RUNS} CUDA-event-timed runs each [{name_power}]")
+    prefix = live_bank[:30]   # the SLAM run's largest searchable prefix
+    for label, b in (("30 rows", prefix), ("all live", live_bank)):
+        k2_ms, k2_plain, pa, pb = kernel_vs_plain(
+            lambda: sc_corr.sc_shift_distances_cuda(query, b),
+            lambda: scancontext.sc_shift_distance_matrix_plain(query, b))
+        print(f"K2 sc_shift_distances (20, 60) x {tuple(b.shape)} ({label}): kernel "
+              f"{k2_ms:.4f} ms, plain {k2_plain:.4f} ms (halves {pa:.4f} / {pb:.4f}), "
+              f"median of {TIMED_RUNS} CUDA-event-timed runs each [{name_power}]")
     k3_ms, k3_plain, pa, pb = kernel_vs_plain(
         lambda: nn_dist.nearest_neighbors_cuda(src, tgt, tv),
         lambda: icp.nearest_neighbors_plain(src, tgt, tv))
@@ -467,9 +537,25 @@ def main() -> None:
     fc = cfg.features
     na, nbp = x.shape
     ntaps = cen2019.smoothing_taps(fc).numel()
-    n_rows, nr, ns = bank.shape
     n_valid = int(tv.sum())
     nq, nt = src.shape[0], tgt.shape[0]
+
+    def k2_work(b: torch.Tensor) -> tuple:
+        # query and bank read once, (N, S) distances written once; two
+        # operations per cell and shift (the cosine mass), three per
+        # cell for the column norms
+        n_rows, nr, ns = b.shape
+        return (4 * (nr * ns + n_rows * nr * ns + n_rows * ns),
+                2 * n_rows * nr * ns * ns + 3 * n_rows * nr * ns)
+
+    for label, b in (("30 rows, the SLAM run's largest prefix", prefix),
+                     ("400 live, 3696 zero", bank)):
+        b_ms, b_by = bound(*k2_work(b))
+        dev_ms = device_ms(lambda: sc_corr.sc_shift_distances_cuda(query, b))
+        print(f"sc_shift_distances at {tuple(b.shape)} ({label}, variant "
+              f"{sc_corr.launch_geometry(b.shape[0])[0]}): device {dev_ms:.5f} ms per "
+              f"launch, bound {1e3 * b_ms:.3f} us by {b_by}, share {b_ms / dev_ms:.4f} "
+              f"[{name_power}]")
     specs = {
         # name: (launch, bytes moved, fp32 operations, ms, plain ms, max abs
         # err, source, TPU kernel)
@@ -482,12 +568,8 @@ def main() -> None:
             8 * na * nbp, na * nbp * (2 * ntaps + 17),
             k1_ms, k1_plain, k1_err, "cen_peaks", "cen_peaks.py:121"),
         "sc_shift_distances": (
-            lambda: sc_corr.sc_shift_distances_cuda(query, bank),
-            # query and bank read once, (N, S) distances written once; two
-            # operations per cell and shift (the cosine mass), three per
-            # cell for the column norms
-            4 * (nr * ns + n_rows * nr * ns + n_rows * ns),
-            2 * n_rows * nr * ns * ns + 3 * n_rows * nr * ns,
+            lambda: sc_corr.sc_shift_distances_cuda(query, live_bank),
+            *k2_work(live_bank),
             k2_ms, k2_plain, k2_err, "sc_corr", "sc_corr.py:49"),
         "nearest_neighbors": (
             lambda: nn_dist.nearest_neighbors_cuda(src, tgt, tv),

@@ -4,122 +4,392 @@
 // Replaces the TPU kernel
 //   navtech_radar_slam_tpu/ops/pallas/sc_corr.py::sc_shift_distances_pallas
 // and computes what its wrapper and body compute together, for a (R, S)
-// query and a (N, R, S) bank (20 x 60 and N = 4096 at full width):
+// query and a (N, R, S) bank (20 x 60 in every shipped config):
 //
-//   qn, bn  = descriptors with each column divided by max(|column|, 1e-9)
+//   qn, bn   = descriptors with each column divided by max(|column|, 1e-9)
 //   qnz, bnz = column |column| > 1e-9
 //   C[n, z]     = sum_{r, c} qn[r, (z + c) mod S] * bn[n, r, c]
 //   count[n, z] = sum_c qnz[(z + c) mod S] * bnz[n, c]
 //   out[n, z]   = count > 0.5 ? 1 - C / max(count, 1) : 1
 //
-// The column normalisation, done in XLA around the TPU kernel, is done
-// here in the kernel, so the bank is read once.
+// The column normalisation, done in XLA around the TPU kernel, is done here
+// in the kernel, so the bank is read once.
 //
-// What bounds it on the card: neither, at this size.  A call reads the
-// 19.7 MB bank once (about 6 us at 3.35 TB/s) and does 2 x 4096 x 60 x
-// 1200 = 0.59 GFLOP of fp32 (about 9 us at 67 TFLOP/s), so launch and
-// wrapper time dominate.  The TPU kernel materialises the query rolled to
-// all 60 shifts, (1200 x 60) floats = 288 KB, as a matrix for the MXU; that
-// is more than a Hopper block's 227 KB of shared memory.  Here the roll is
-// never materialised: the normalised query (4.8 KB) sits in shared memory
-// and each thread reads column (z + c) mod S on the fly.  One block scores
-// kRows bank rows; within a row, one thread per shift accumulates the 1200
-// products and the column count in fp32 registers.  Neighbouring threads
-// read neighbouring query columns (no bank conflicts) and the same bank
-// element (a broadcast).  Sums are taken in a fixed order, so two runs give
-// the same matrix.  Tensor cores (wgmma on the (N x 1200) x (1200 x 60)
-// product) and restricting the work to the live bank prefix are later work.
+// What bounds it on the card: at 4096 rows the call reads the 19.7 MB bank
+// once (6.2 us at 3.35 TB/s with the output) and does 2 x 4096 x 60 x 1200
+// = 0.59 GFLOP of fp32 (9.0 us at 67 TFLOP/s with the norms): the fp32
+// units.  The contraction stays true fp32 in a fixed order on the CUDA
+// cores; TF32 tensor cores would not hold the 2e-5 tolerance.
+//
+// The first Hopper design (one thread per (row, shift), four rows a block)
+// ran at 7 % of that bound.  What held it back, and what this design does:
+//
+//   1. Two shared-memory loads per FMA (the rolled query value and the
+//      bank value) plus index arithmetic: the load unit set the pace.  An
+//      SM's shared memory returns 32 floats a clock (a 16-byte load costs
+//      4 wavefronts even when every lane reads one address) against 128
+//      FMA lanes, so each loaded float must feed 4 FMAs or more.  Here a
+//      thread holds one bank row x kShifts = 12 shifts in registers.  The
+//      normalised query sits in shared memory doubled to (R, W) columns, so
+//      the roll needs no mod, and the thread's window for columns c .. c + 3
+//      is the 16 query values at z0 + c .. z0 + c + 15, of which only the
+//      last 4 are loaded for each step (one 16-byte load), the rest carried
+//      in registers; the 4 bank values are one 16-byte load.  The next
+//      step's query load is issued before this step's 48 FMAs: 6 FMAs per
+//      loaded float (0.5 before).
+//   2. 64 threads per row for 60 shifts.  The shifts now come in 12-wide
+//      groups: 5 for S = 60, none idle.
+//   3. A prologue of 4-byte copies, a run-time division per element and a
+//      division per bank value.  Rows are copied with 16-byte cp.async
+//      (scalar copies only for an S that is not a multiple of 4 or a
+//      misaligned bank) while the query's norms are taken; the column norms
+//      and the in-place scaling take 4 columns at a time in 16-byte loads,
+//      one reciprocal per column, and no index is divided per element.
+//   4. The column count was a 60-step loop for every (row, shift).  The
+//      non-zero columns are 64-bit masks (S <= 64), packed from one flag
+//      byte per column, and count[n, z] = popc(bmask[n] & rot_S(qmask, z)),
+//      exact.  (A shared 64-bit atomicOr per column serialised the lanes.)
+//
+// Outside the contraction a block's work is short chains of dependent
+// loads, run once: at 4 warps an SM every such phase was latency-bound, so
+// the R rings are split over kSplits thread groups (more warps, shorter
+// chains), whose partial sums are added in group order; and code that runs
+// once per block is kept in rolled loops, since there instruction fetches
+// cost more than the work.  Two instantiations of one template, chosen per
+// launch by the host (ops/kernels/sc_corr.py::launch_geometry):
+//   * split (variant 0): 2 rows a block, the rings split 20 ways, 200
+//     threads.  For the few rows the SLAM path searches (1 to 30 on the
+//     60-scan run): N / 2 blocks spread over the SMs;
+//   * tile (variant 1): 16 rows a block, the rings split 4 ways, 320
+//     threads, 106 KB of shared memory: two blocks an SM, so 4096 rows are
+//     one wave of 256 blocks.
+// Every sum is taken in a fixed order, so two runs give the same matrix.
+// ptxas (-Xptxas -v, which chip_smoke.py prints): 55 and 56 registers for
+// the two instantiations, no spills, no stack.
+//
+// Measured on an H100 (chip_smoke.py, PERF.md): 4096 rows take about 26 us,
+// a third of the way to the bound, the contraction sharing the time with
+// the staging, the normalisation and the launch.  30 rows take about 9 us,
+// set by the chain of dependent phases of one block.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kMaxSectors = 64;   // threads per bank row: one per shift
-constexpr int kMaxCells = 2048;   // R * S held in shared memory per row
-constexpr int kRows = 4;          // bank rows per block
-constexpr int kThreads = kMaxSectors * kRows;
+constexpr int kMaxSectors = 64;   // S <= 64: one bit per column in a u64 mask
+constexpr int kMaxCells = 2048;   // R * round_up(S, 4)
+constexpr int kShifts = 12;       // shifts per thread
+constexpr int kWin = kShifts / 4 + 1;   // float4s in a thread's query window
+constexpr int kSlots = kWin + 1;        // ... plus one being loaded
+constexpr int kRowPad = 4;        // floats after each staged bank row
+constexpr int kQuadLoads = 8;     // query rings a lane loads at once
+constexpr int kSplitRows = 2;     // bank rows a block, split variant
+constexpr int kTileRows = 16;     // bank rows a block, tile variant
+constexpr int kMaxThreads = 384;  // 6 shift groups (S = 64) x 16 rows x 4 splits
 
-__global__ void __launch_bounds__(kThreads)
+// Dynamic shared memory of one block, offsets in floats, each 16-byte aligned:
+// bank rows (rows x stride), doubled query (R x W), partial sums (splits x
+// rows x zpad), one byte per column (64 a row) that says it is non-zero,
+// then the same as a 64-bit mask: the query's, then each bank row's.
+struct Layout {
+  int sp, zpad, w, stride, qd, part, flags, masks, bytes;
+};
+
+__host__ __device__ inline Layout layout(int rows, int splits, int nr, int ns) {
+  Layout l;
+  l.sp = (ns + 3) & ~3;
+  l.zpad = (ns + kShifts - 1) / kShifts * kShifts;
+  l.w = l.zpad + l.sp + 4;   // the last window reads column zpad + sp + 3
+  l.stride = nr * l.sp + kRowPad;
+  l.qd = rows * l.stride;
+  l.part = l.qd + nr * l.w;
+  l.flags = l.part + splits * rows * l.zpad;
+  l.masks = l.flags + (rows + 1) * kMaxSectors / 4;
+  l.bytes = l.masks * 4 + (rows + 1) * 8;
+  return l;
+}
+
+// 64 column flags (bytes 0 / 1) -> a 64-bit mask, bit c = column c
+__device__ __forceinline__ unsigned long long pack_flags(const unsigned char* f) {
+  const unsigned* w = reinterpret_cast<const unsigned*>(f);
+  unsigned long long m = 0ull;
+#pragma unroll 1
+  for (int j = 0; j < kMaxSectors / 4; ++j) {
+    const unsigned x = w[j];
+    const unsigned nib = (x & 1u) | ((x >> 7) & 2u) | ((x >> 14) & 4u) | ((x >> 21) & 8u);
+    m |= static_cast<unsigned long long>(nib) << (4 * j);
+  }
+  return m;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// sums of squares of 4 neighbouring columns (p 16-byte aligned) over n rows
+// step floats apart, in row order, loading 8 rows at a time so that their
+// latencies overlap
+__device__ __forceinline__ float4 sum_sq4(const float* p, int step, int n) {
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int r0 = 0; r0 < n; r0 += 8) {
+    float4 v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      v[u] = r0 + u < n ? ld4(p + (r0 + u) * step) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      s.x = fmaf(v[u].x, v[u].x, s.x);
+      s.y = fmaf(v[u].y, v[u].y, s.y);
+      s.z = fmaf(v[u].z, v[u].z, s.z);
+      s.w = fmaf(v[u].w, v[u].w, s.w);
+    }
+  }
+  return s;
+}
+
+__device__ __forceinline__ float recip_norm(float norm) { return 1.f / fmaxf(norm, 1e-9f); }
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+template <int kRows, int kSplits>
+__global__ void __launch_bounds__(kMaxThreads, 2)
 sc_corr_kernel(const float* __restrict__ query, const float* __restrict__ bank,
-               float* __restrict__ out, int n, int nr, int ns) {
-  __shared__ float q[kMaxCells];
-  __shared__ float b[kRows][kMaxCells];
-  __shared__ float qnorm[kMaxSectors];
-  __shared__ float bnorm[kRows][kMaxSectors];
+               float* __restrict__ out, int n, int nr, int ns, bool vec) {
+  static_assert(kRows * kSplits % 4 == 0, "step 2 needs whole quads of lanes");
+  extern __shared__ __align__(16) float smem[];
+  const Layout L = layout(kRows, kSplits, nr, ns);
+  const int sp = L.sp, zpad = L.zpad, w = L.w, stride = L.stride;
+  float* bs = smem;
+  float* qd = smem + L.qd;
+  float* part = smem + L.part;
+  unsigned char* qflag = reinterpret_cast<unsigned char*>(smem + L.flags);
+  unsigned char* bflag = qflag + kMaxSectors;   // row i at bflag + i * 64
+  unsigned long long* masks = reinterpret_cast<unsigned long long*>(smem + L.masks);
 
-  const int cells = nr * ns;
+  const int nthreads = blockDim.x;   // (zpad / 12) * kRows * kSplits
   const int tid = threadIdx.x;
-  const int row = tid / kMaxSectors;   // bank row within the block
-  const int z = tid % kMaxSectors;     // shift (and column, for the norms)
   const int row0 = blockIdx.x * kRows;
   const int rows_here = min(kRows, n - row0);
+  const int cells = nr * ns;
 
-  // the query and this block's bank rows (contiguous), into shared memory
-  for (int i = tid; i < cells; i += kThreads) q[i] = query[i];
-  const float* src = bank + static_cast<size_t>(row0) * cells;
-  for (int i = tid; i < rows_here * cells; i += kThreads) {
-    b[i / cells][i % cells] = src[i];
-  }
-  __syncthreads();
-
-  // column norms: thread (row, z) takes column z of its bank row; the
-  // threads of row 0 also take column z of the query
-  if (z < ns) {
-    if (row < rows_here) {
-      float s = 0.f;
-      for (int r = 0; r < nr; ++r) {
-        const float v = b[row][r * ns + z];
-        s = __fadd_rn(s, __fmul_rn(v, v));
+  // 1. this block's bank rows into shared memory (rows past N as zeros);
+  //    with S % 4 == 0, Sp == S and a staged row is the row as it lies
+  if (vec) {
+    for (int i = 0; i < kRows; ++i) {
+      float* dst = bs + i * stride;
+      if (i < rows_here) {
+        const float* src = bank + static_cast<size_t>(row0 + i) * cells;
+        for (int j = 4 * tid; j < cells; j += 4 * nthreads) cp_async16(dst + j, src + j);
+      } else {
+        for (int j = 4 * tid; j < cells; j += 4 * nthreads)
+          *reinterpret_cast<float4*>(dst + j) = make_float4(0.f, 0.f, 0.f, 0.f);
       }
-      bnorm[row][z] = sqrtf(s);
     }
-    if (row == 0) {
+  } else {
+    for (int i = 0; i < kRows; ++i) {
+      const float* src = bank + static_cast<size_t>(row0 + i) * cells;
+      for (int r = 0; r < nr; ++r)
+        for (int c = tid; c < sp; c += nthreads)
+          bs[i * stride + r * sp + c] = (i < rows_here && c < ns) ? src[r * ns + c] : 0.f;
+    }
+  }
+  // 2. while the copies fly, the doubled normalised query
+  //    qd[r][j] = qn[r][j mod S], j < W, and its flags, a quad of lanes to a
+  //    column: lane h reads rings h, h + 4, ... into registers and sums
+  //    their squares, two xor shuffles add the quad's 4 sums in a fixed
+  //    order (each lane gets the same total), and each lane writes its own
+  //    rings (nthreads % 4 == 0, so a quad is always whole)
+  {
+    const int h = tid & 3;
+    const unsigned quad = 0xfu << (tid & 28);
+    for (int c = ns + tid; c < kMaxSectors; c += nthreads) qflag[c] = 0;
+    for (int p = tid; p < 4 * w; p += nthreads) {
+      const int j = p >> 2;
+      int c = j;
+      while (c >= ns) c -= ns;
       float s = 0.f;
-      for (int r = 0; r < nr; ++r) {
-        const float v = q[r * ns + z];
-        s = __fadd_rn(s, __fmul_rn(v, v));
+      for (int r0 = h; r0 < nr; r0 += 4 * kQuadLoads) {
+        float v[kQuadLoads];   // loaded together, so their latencies overlap
+#pragma unroll
+        for (int u = 0; u < kQuadLoads; ++u)
+          v[u] = r0 + 4 * u < nr ? query[(r0 + 4 * u) * ns + c] : 0.f;
+#pragma unroll
+        for (int u = 0; u < kQuadLoads; ++u) s = fmaf(v[u], v[u], s);
       }
-      qnorm[z] = sqrtf(s);
+      s += __shfl_xor_sync(quad, s, 1);
+      s += __shfl_xor_sync(quad, s, 2);
+      const float norm = sqrtf(s);
+      const float inv = recip_norm(norm);
+      for (int r = h; r < nr; r += 4) qd[r * w + j] = query[r * ns + c] * inv;
+      if (h == 0 && j < ns) qflag[j] = norm > 1e-9f;
     }
   }
+  cp_async_wait_all();
   __syncthreads();
 
-  // normalise in place: d / max(norm, 1e-9)
-  for (int i = tid; i < cells; i += kThreads) {
-    q[i] = __fdiv_rn(q[i], fmaxf(qnorm[i % ns], 1e-9f));
-  }
-  for (int i = tid; i < rows_here * cells; i += kThreads) {
-    const int rr = i / cells, c = (i % cells) % ns;
-    b[rr][i % cells] = __fdiv_rn(b[rr][i % cells], fmaxf(bnorm[rr][c], 1e-9f));
-  }
-  __syncthreads();
-
-  if (row >= rows_here || z >= ns) return;
-  float acc = 0.f;
-  float count = 0.f;
-  int qc = z;                                   // (z + c) mod S
-  for (int c = 0; c < ns; ++c) {
-    if (qnorm[qc] > 1e-9f && bnorm[row][c] > 1e-9f) count += 1.f;
-    for (int r = 0; r < nr; ++r) {
-      acc = fmaf(q[r * ns + qc], b[row][r * ns + c], acc);
+  // 3. the bank rows normalised in place, one thread per (row, 4 columns)
+  constexpr int kGroups = kMaxSectors / 4;
+  for (int p = tid; p < kRows * kGroups; p += nthreads) {
+    const int i = p / kGroups, c = 4 * (p % kGroups);   // powers of two
+    float4 nrm = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < sp && i < rows_here) {
+      float* col = bs + i * stride + c;
+      const float4 s = sum_sq4(col, sp, nr);
+      nrm = make_float4(sqrtf(s.x), sqrtf(s.y), sqrtf(s.z), sqrtf(s.w));
+      const float4 inv = make_float4(recip_norm(nrm.x), recip_norm(nrm.y), recip_norm(nrm.z),
+                                     recip_norm(nrm.w));
+#pragma unroll 4
+      for (int r = 0; r < nr; ++r) {
+        float4 v = ld4(col + r * sp);
+        v.x *= inv.x;
+        v.y *= inv.y;
+        v.z *= inv.z;
+        v.w *= inv.w;
+        *reinterpret_cast<float4*>(col + r * sp) = v;
+      }
     }
-    qc = (qc + 1 == ns) ? 0 : qc + 1;
+    // the flag bytes i * 64 + c .. c + 3, zero for padded columns and rows
+    reinterpret_cast<unsigned*>(bflag)[p] =
+        (nrm.x > 1e-9f ? 1u : 0u) | (nrm.y > 1e-9f ? 1u << 8 : 0u) |
+        (nrm.z > 1e-9f ? 1u << 16 : 0u) | (nrm.w > 1e-9f ? 1u << 24 : 0u);
   }
-  out[static_cast<size_t>(row0 + row) * ns + z] =
-      count > 0.5f ? 1.f - acc / fmaxf(count, 1.f) : 1.f;
+  __syncthreads();
+  // the query's and each row's 64-bit column mask, read after step 5's barrier
+  for (int t = tid; t <= kRows; t += nthreads) masks[t] = pack_flags(qflag + t * kMaxSectors);
+
+  // 4. the register tile: bank row i, shifts z0 .. z0 + 11, rings r = split,
+  //    split + kSplits, ...; each step loads the query float4 that the next
+  //    step needs before its own FMAs (the last such load reads qd's column
+  //    zpad + sp + 3 at most, inside the row)
+  const int nzg = zpad / kShifts;
+  const int zg = tid % nzg;          // one division per thread
+  const int grp = tid / nzg;
+  const int i = grp % kRows;
+  const int split = grp / kRows;
+  const int z0 = zg * kShifts;
+  float acc[kShifts];
+#pragma unroll
+  for (int k = 0; k < kShifts; ++k) acc[k] = 0.f;
+
+  for (int r = split; r < nr; r += kSplits) {
+    const float* q = qd + r * w + z0;
+    const float* b = bs + i * stride + r * sp;
+    // a ring of kSlots float4s: at step t (columns 4t .. 4t + 3), slot
+    // (t + u) % kSlots holds query columns z0 + 4t + 4u .. + 3, u < kWin,
+    // and the free slot takes the next step's newest float4.  The steps
+    // are unrolled kSlots at a time, so every slot index is a constant and
+    // the window moves without register copies.
+    float4 win[kSlots];
+#pragma unroll
+    for (int u = 0; u < kWin; ++u) win[u] = ld4(q + 4 * u);
+    for (int c0 = 0; c0 < sp; c0 += 4 * kSlots) {
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        const int c = c0 + 4 * s;
+        if (c >= sp) break;
+        win[(s + kWin) % kSlots] = ld4(q + c + 4 * kWin);
+        const float4 bv = ld4(b + c);
+        const float bb[4] = {bv.x, bv.y, bv.z, bv.w};
+        float wv[4 * kWin];
+#pragma unroll
+        for (int u = 0; u < kWin; ++u) {
+          const float4 x = win[(s + u) % kSlots];
+          wv[4 * u] = x.x;
+          wv[4 * u + 1] = x.y;
+          wv[4 * u + 2] = x.z;
+          wv[4 * u + 3] = x.w;
+        }
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+#pragma unroll
+          for (int k = 0; k < kShifts; ++k) acc[k] = fmaf(wv[k + m], bb[m], acc[k]);
+      }
+    }
+  }
+
+  // 5. every group's partial sums into shared memory
+#pragma unroll
+  for (int k = 0; k < kShifts; ++k) part[(split * kRows + i) * zpad + z0 + k] = acc[k];
+  __syncthreads();
+  if (i >= rows_here) return;
+
+  // 6. the distances: thread (split, i, zg) finishes shifts z0 + k for
+  //    k = split, split + kSplits, ..., adding the groups' partial sums in
+  //    group order and counting by popcount.  The loops stay rolled: code
+  //    that runs once per block costs more in instruction fetches than in
+  //    work.
+  const unsigned long long qm = masks[0], bm = masks[1 + i];
+  const unsigned long long full = ns == 64 ? ~0ull : (1ull << ns) - 1ull;
+  float* o = out + static_cast<size_t>(row0 + i) * ns;
+#pragma unroll 1
+  for (int k = split; k < kShifts; k += kSplits) {
+    const int z = z0 + k;
+    if (z >= ns) break;
+    float v = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < kSplits; ++s) v += part[(s * kRows + i) * zpad + z];
+    const unsigned long long rot = z == 0 ? qm : ((qm >> z) | (qm << (ns - z))) & full;
+    const float cnt = static_cast<float>(__popcll(bm & rot));
+    o[z] = cnt > 0.5f ? 1.f - v / fmaxf(cnt, 1.f) : 1.f;
+  }
+}
+
+template <int kRows, int kSplits>
+int launch(const float* query, const float* bank, float* out, int n, int nr, int ns,
+           cudaStream_t stream) {
+  constexpr int kDevices = 64;
+  static int attr_bytes[kDevices] = {};   // the opt-in already set, per device
+  const Layout L = layout(kRows, kSplits, nr, ns);
+  auto kernel = sc_corr_kernel<kRows, kSplits>;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= kDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (L.bytes > attr_bytes[dev]) {
+    // the opt-in above 48 KB, and all of the SM's shared memory as such, so
+    // that two tile blocks fit on an SM
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_bytes[dev] = L.bytes;
+  }
+  const bool vec = ns % 4 == 0 && reinterpret_cast<uintptr_t>(bank) % 16 == 0;
+  const int threads = (L.zpad / kShifts) * kRows * kSplits;
+  const int blocks = (n + kRows - 1) / kRows;
+  kernel<<<blocks, threads, L.bytes, stream>>>(query, bank, out, n, nr, ns, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Limits and tile heights the Python wrapper mirrors (ops/kernels/sc_corr.py).
 extern "C" int sc_corr_max_sectors() { return kMaxSectors; }
 extern "C" int sc_corr_max_cells() { return kMaxCells; }
+extern "C" int sc_corr_block_rows(int variant) {
+  return variant == 0 ? kSplitRows : variant == 1 ? kTileRows : 0;
+}
 
 // query (R, S), bank (N, R, S), out (N, S): contiguous float32 on the device.
-extern "C" int sc_corr_launch(const float* query, const float* bank, float* out,
-                              int n, int nr, int ns, void* stream) {
+// variant 0 is the split tile, 1 the register tile.
+// Returns the CUDA error (0 = cudaSuccess) and leaves no error pending.
+extern "C" int sc_corr_launch(const float* query, const float* bank, float* out, int n,
+                              int nr, int ns, int variant, void* stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + kRows - 1) / kRows;
-  sc_corr_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      query, bank, out, n, nr, ns);
-  return static_cast<int>(cudaGetLastError());
+  if (nr < 1 || ns < 1 || ns > kMaxSectors || nr * ((ns + 3) & ~3) > kMaxCells)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (variant == 0) return launch<kSplitRows, 20>(query, bank, out, n, nr, ns, st);
+  if (variant == 1) return launch<kTileRows, 4>(query, bank, out, n, nr, ns, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -210,10 +210,16 @@ def detect_loop(query_desc: torch.Tensor, bank_desc: torch.Tensor, num_valid: in
                 cfg: ScanContextConfig) -> LoopCandidate:
     """Full-bank loop detection.  bank_desc: (N_max, R, S) padded bank;
     num_valid: stored keyframes (the query is keyframe num_valid - 1; the
-    most recent num_exclude_recent are excluded)."""
-    n = bank_desc.shape[0]
-    dist, shift = sc_distance_all_shifts(query_desc, bank_desc)
-    searchable = torch.arange(n, device=bank_desc.device) < (num_valid - cfg.num_exclude_recent)
+    most recent num_exclude_recent are excluded).
+
+    Only the searchable prefix is scored: rows at or past num_valid -
+    num_exclude_recent could never win.  One row is kept when none is
+    searchable, so the candidate (idx -1, dist +inf, yaw of row 0's best
+    shift) is the one the full padded bank gives."""
+    bound = num_valid - cfg.num_exclude_recent
+    n = max(bound, 1)
+    dist, shift = sc_distance_all_shifts(query_desc, bank_desc[:n])
+    searchable = torch.arange(dist.shape[0], device=bank_desc.device) < bound
     dist = torch.where(searchable, dist, torch.full_like(dist, float("inf")))
     best = torch.argmin(dist)
     return _candidate(best, dist[best], shift[best], cfg)

@@ -106,17 +106,29 @@ def _same_candidate(got, want):
         assert float(got.dist) == pytest.approx(float(want.dist), abs=SC_ATOL)
 
 
-@pytest.mark.parametrize("num_valid", [40, 25, 10])
-def test_detect_loop_matches_jax(num_valid):
+@pytest.mark.parametrize("num_valid", [40, 25, 10, 12, 13])
+def test_detect_loop_matches_jax(num_valid, monkeypatch):
     """The query is keyframe num_valid - 1: a revisit of row 3 at 40, no
-    searchable revisit below that; 10 leaves nothing searchable."""
+    searchable revisit below that; 10 and 12 leave nothing searchable, 13
+    one row.  Only the searchable prefix of the padded bank is scored (one
+    row when none is searchable), and the candidate is JAX's, which scores
+    the whole bank."""
     cfg = dataclasses.replace(CFG, num_exclude_recent=12)
     bank = _bank(40)
     query = bank[num_valid - 1]
     want = jsc.detect_loop(jnp.asarray(query), jnp.asarray(bank), jnp.asarray(num_valid), cfg)
+    scored = []
+    all_shifts = tsc.sc_distance_all_shifts
+
+    def recording(q, b):
+        scored.append(b.shape[0])
+        return all_shifts(q, b)
+
+    monkeypatch.setattr(tsc, "sc_distance_all_shifts", recording)
     got = tsc.detect_loop(t(query), t(bank), num_valid, cfg)
     _same_candidate(got, want)
     assert bool(got.found) == (num_valid == 40)
+    assert scored == [max(num_valid - 12, 1)]
 
 
 @pytest.mark.parametrize("period,ratio", [(30, 0.1), (1, 0.0), (8, 0.1)])
@@ -153,17 +165,92 @@ def test_kernel_wrapper_takes_only_cuda_tensors():
         sc_corr.sc_shift_distances_cuda(bank[0], bank)
 
 
+@pytest.mark.parametrize("n", [1, 30, 4096, 4097, 8192])
+def test_sc_corr_launch_geometry_covers_every_row_once(n):
+    """The blocks of one launch cover rows 0 .. n - 1, each exactly once:
+    block b takes rows [b * rows, (b + 1) * rows) and drops those >= n."""
+    variant, rows, blocks = sc_corr.launch_geometry(n)
+    assert rows == sc_corr.BLOCK_ROWS[variant]
+    assert variant == (n >= sc_corr.TILE_MIN_ROWS)
+    covered = np.zeros(n, int)
+    for b in range(blocks):
+        covered[b * rows:min((b + 1) * rows, n)] += 1
+    assert (covered == 1).all() and (blocks - 1) * rows < n
+
+
+def _live_bank(n, seed=0):
+    """n live rows: the 40 descriptors of ``_bank`` under seeded circular
+    column rolls, every copy past the first 40 with a tenth of its cells
+    cleared, so no two rows tie."""
+    rng = np.random.default_rng(seed)
+    base = _bank(40, 40)
+    rows = [np.roll(base[i % 40], int(rng.integers(0, CFG.num_sector)), axis=-1)
+            for i in range(n)]
+    for row in rows[40:]:
+        row[rng.random(row.shape) < 0.1] = 0.0
+    return np.stack(rows).astype(np.float32)
+
+
 @pytest.mark.cuda
-def test_sc_corr_kernel_matches_plain_on_cuda(cuda_device):  # noqa: F811
-    """K2 against its plain version on the card at a full-width bank (4096
-    rows, 40 live); one launch per call; the same best row and shift."""
-    bank = torch.zeros((4096, CFG.num_ring, CFG.num_sector), device=cuda_device)
-    bank[:64] = t(_bank(40, 64), cuda_device)
-    query = bank[39].clone()
+@pytest.mark.parametrize("n,case", [(1, "live"), (7, "live"), (30, "live"), (129, "live"),
+                                    (4096, "live"), (4097, "live"), (64, "zero rows"),
+                                    (30, "zero query")])
+def test_sc_corr_kernel_matches_plain_on_cuda(n, case, cuda_device):  # noqa: F811
+    """K2 against its plain version on the card: one launch per call, atol
+    2e-5, the same best row and shift.  The query is row k rolled by 17
+    columns (with five empty columns in the "zero rows" case, where twenty
+    bank rows are all zero too), so row k's distance at shift 17 is ~0; an
+    all-zero query gives 1 everywhere."""
+    bank = _live_bank(n)
+    k, roll = n // 2, 17
+    query = np.roll(bank[k], roll, axis=-1)
+    if case == "zero rows":
+        bank[10:20] = 0.0
+        bank[50:] = 0.0
+        query[:, 5:10] = 0.0
+    if case == "zero query":
+        query[:] = 0.0
+    bank, query = t(bank, cuda_device), t(query, cuda_device)
     before = sc_corr.launch_count
     got = sc_corr.sc_shift_distances_cuda(query, bank)
     torch.cuda.synchronize()
     assert sc_corr.launch_count == before + 1
     want = tsc.sc_shift_distance_matrix_plain(query, bank)
     np.testing.assert_allclose(np_(got), np_(want), atol=SC_ATOL)
-    assert int(torch.argmin(got.min(dim=1).values)) == int(torch.argmin(want.min(dim=1).values))
+    if case == "zero query":
+        assert (np_(got) == 1.0).all()
+        return
+    assert float(got[k, roll]) < 1e-5
+    assert int(torch.argmin(got)) == int(torch.argmin(want)) == k * CFG.num_sector + roll
+    if case == "zero rows":
+        assert (np_(got[10:20]) == 1.0).all() and (np_(got[50:]) == 1.0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset", [((40, 10, 30), 0), ((40, 20, 60), 1)])
+def test_sc_corr_kernel_scalar_staging_on_cuda(shape, offset, cuda_device):  # noqa: F811
+    """The kernel's 4-byte staging path: S not a multiple of 4 (the columns
+    padded to 32), and a contiguous bank 4 bytes off 16-byte alignment."""
+    rng = np.random.default_rng(5)
+    n, nr, ns = shape
+    flat = rng.uniform(0, 3, n * nr * ns + offset).astype(np.float32)
+    flat[rng.random(flat.shape) < 0.2] = 0.0
+    bank = t(flat, cuda_device)[offset:].view(n, nr, ns)
+    query = t(np.roll(np_(bank[7]), 5, axis=-1), cuda_device)
+    got = sc_corr.sc_shift_distances_cuda(query, bank)
+    want = tsc.sc_shift_distance_matrix_plain(query, bank)
+    np.testing.assert_allclose(np_(got), np_(want), atol=SC_ATOL)
+    assert int(torch.argmin(got)) == int(torch.argmin(want)) == 7 * ns + 5
+
+
+@pytest.mark.cuda
+def test_sc_corr_kernel_empty_and_wide_banks(cuda_device):  # noqa: F811
+    """An empty bank gives a (0, S) result with no launch; more than 64
+    sectors raise."""
+    before = sc_corr.launch_count
+    out = sc_corr.sc_shift_distances_cuda(torch.zeros((20, 60), device=cuda_device),
+                                          torch.zeros((0, 20, 60), device=cuda_device))
+    assert tuple(out.shape) == (0, 60) and sc_corr.launch_count == before
+    with pytest.raises(ValueError, match="sectors"):
+        sc_corr.sc_shift_distances_cuda(torch.zeros((20, 65), device=cuda_device),
+                                        torch.zeros((3, 20, 65), device=cuda_device))
