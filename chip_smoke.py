@@ -8,8 +8,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
   1. the card: CUDA must be available; prints nvidia-smi's name and power
      limit of the card;
   2. the build: nvcc builds kernels K1, K2 and K3 (navtech_radar_slam_torch/
-     csrc/{cen_peaks,sc_corr,nn_dist}.cu) from this checkout, all three at
-     once, into navtech_radar_slam_torch/_build/;
+     csrc/{cen_peaks,sc_corr,nn_dist}.cu; K2-T and K3-T are the T-slot entry
+     points of the last two) from this checkout, all three at once, into
+     navtech_radar_slam_torch/_build/;
   3. K1 against its plain PyTorch twin on the card, on a full-size simulated
      scan as float input and through the 4-bit wire format: the same peak
      positions and values, exactly;
@@ -27,16 +28,33 @@ Phases, in order; any failure ends the run with a non-zero exit:
   7. K3 against its plain version at (1024, 8192), 20 % of the targets
      invalid, with every target tied across the target chunks, and with
      every target invalid: the same indices and d2, exactly;
-  8. the full-SLAM path: SlamEngine(SlamConfig()) over 60 motion-distorted
-     full-size scans of a circuit, every launch counter reset just before
-     and read just after; checks the keyframes, K2 once per detecting
-     keyframe on the searchable bank prefix (max(keyframes - 30, 1) rows),
-     K3 at least twice per verified candidate, >= 12 accepted loops, a full
-     pose-graph solve, ATE < 1 % of the path and a finite map;
-  9. times: K2 (on the all-live bank) and K3 against their plain versions,
-     and the per-scan SlamEngine.process time split into odometry,
-     keyframe step and refine;
- 10. for each kernel, the device time per launch (CUDA events around 200
+  8. K2-T (one launch for T queries) against its plain version (max abs
+     err <= 2e-5, the same best row and shift in every slot): 16 queries
+     against the 400-live bank and against the all-live bank, 16 queries
+     each against its own 10 ring-key candidates (a (16, 10, 20, 60) bank,
+     as ring-key mode makes), and T = 1, bit-equal to K2;
+  9. K3-T (one launch for T ICP problems) against its plain version: 16
+     slots at (1024, 8192) with masks that differ per slot, every target
+     tied across the chunks, and T = 1, bit-equal to K3: the same indices
+     and d2, exactly;
+ 10. the full-SLAM path per scan: SlamEngine(SlamConfig()) over 60
+     motion-distorted full-size scans of a circuit, every launch counter
+     reset just before and read just after; checks the keyframes, K2 once
+     per detecting keyframe on the searchable bank prefix (max(keyframes -
+     30, 1) rows), K3 at least twice per verified candidate, >= 12 accepted
+     loops, a full pose-graph solve, ATE < 1 % of the path and a finite map;
+ 11. the full-SLAM path streamed: the same 60 scans through begin_chunk /
+     finish_chunk, chunks of 16, two in flight, then current_pose(), every
+     counter reset just before and read just after; checks 60 keyframes,
+     a segment, K2-T once per segment that detects, K3-T once per T-slot
+     ICP iteration plus the final fitness, K2 and K3 only for the keyframes
+     sent down the per-keyframe path, the same loop, solve and ATE checks,
+     and prints its loops beside the per-scan run's;
+ 12. times: K2 (on the all-live bank), K3, K2-T and K3-T (16 slots) against
+     their plain versions, the per-scan SlamEngine.process time split into
+     odometry, keyframe step and refine, and the streamed run's time per
+     scan beside it;
+ 13. for each kernel, the device time per launch (CUDA events around 200
      back-to-back launches, the host queued ahead of the card behind a
      sleep kernel), its bound (the larger of the bytes it must move over
      the H100's 3.35 TB/s and its fp32 operations over 67 TFLOP/s, from
@@ -44,15 +62,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
      each path, and the device kernels of one call (torch.profiler): one.
      K2's report is at the 4096-row all-live bank; lines before it give
      K2's device ms and bound at the SLAM run's largest prefix (30 rows)
-     and at the 400-live bank.
+     and at the 400-live bank, and K2-T's at 16 x 400 rows.  K2-T's report
+     is at 16 queries x the 30-row prefix, K3-T's at 16 x (1024, 8192).
 
 The line before the last is the kernel report
 {"kernels": [{"name", "route", "source", "replaces", "launches",
-"launches_odometry", "launches_slam", "max_abs_err", "ms", "device_ms",
-"plain_ms", "bound_ms", "bound_by", "library_ms"}]} ("launches": the
-full-SLAM path's; "ms": one wrapper call fenced by CUDA events, median;
-"library_ms": null, since no single PyTorch call computes any of the three
-functions), the last line
+"launches_odometry", "launches_slam", "launches_streaming", "max_abs_err",
+"ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}]}
+("launches": the per-scan full-SLAM path's for K1, K2 and K3, the streamed
+path's for K2-T and K3-T; "ms": one wrapper call fenced by CUDA events,
+median; "library_ms": null, since no single PyTorch call computes any of
+the five functions), the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Scans come from the port's numpy simulator (navtech_radar_slam_torch.data);
 nothing here or in the port imports jax or the JAX package.
@@ -83,6 +103,13 @@ TIMED_RUNS = 30
 SC_ATOL = 2e-5       # the JAX suite's bound for the SC distances
 MIN_LOOPS = 12       # the JAX engine closes 17 on this circuit (CPU run)
 KERNELS = (cen_peaks, sc_corr, nn_dist)
+#: every kernel's launch counter: (name, module, counter attribute)
+COUNTERS = (("cen_peaks", cen_peaks, "launch_count"), ("sc_corr", sc_corr, "launch_count"),
+            ("nn_dist", nn_dist, "launch_count"),
+            ("sc_corr_multi", sc_corr, "multi_launch_count"),
+            ("nn_dist_multi", nn_dist, "multi_launch_count"))
+CHUNK = 16           # scans per chunk of the streamed path
+SLOTS = 16           # query slots of the K2-T and K3-T checks and timings
 DEVICE_LAUNCHES = 200  # back-to-back launches per device-time reading
 # NVIDIA H100 SXM data-sheet peaks (at 700 W): HBM3 bytes/s, fp32 FLOP/s
 # outside the tensor cores
@@ -193,6 +220,62 @@ def check_k2(label: str, query: torch.Tensor, bank: torch.Tensor) -> float:
     return err
 
 
+def reset_counts() -> None:
+    for _, mod, attr in COUNTERS:
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(mod, attr) for name, mod, attr in COUNTERS}
+
+
+def best_per_slot(d: torch.Tensor) -> torch.Tensor:
+    """(T, N, S) distances -> each slot's flat argmin (row * S + shift)."""
+    return torch.argmin(d.reshape(d.shape[0], -1), dim=1)
+
+
+def check_k2t(label: str, queries: torch.Tensor, bank: torch.Tensor) -> float:
+    """K2-T against its plain version: max abs err <= SC_ATOL and the same
+    best (row, shift) in every slot; returns the error."""
+    got = sc_corr.sc_shift_distances_multi_cuda(queries, bank)
+    want = scancontext.sc_shift_distance_matrix_multi_plain(queries, bank)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    n_diff = int((best_per_slot(got) != best_per_slot(want)).sum())
+    print(f"  {label}, queries {tuple(queries.shape)}, bank {tuple(bank.shape)}: max abs "
+          f"err {err:.3g}, slots with another best row or shift {n_diff}")
+    if err > SC_ATOL:
+        raise AssertionError(f"K2-T differs by {err} > {SC_ATOL} ({label})")
+    if n_diff:
+        raise AssertionError(f"K2-T's best row or shift differs in {n_diff} slots ({label})")
+    return err
+
+
+def ringkey_banks(queries: torch.Tensor, bank: torch.Tensor, k: int) -> torch.Tensor:
+    """Each query's k nearest bank rows by ring key, gathered: the
+    (T, k, R, S) bank that ring-key mode hands K2-T."""
+    d2 = torch.sum((scancontext.ring_key(bank)[None] - scancontext.ring_key(queries)[:, None])
+                   ** 2, dim=-1)
+    _, cand = scancontext.top_k(-d2, k)
+    return bank[cand].contiguous()
+
+
+def check_k3t(label: str, src: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor) -> float:
+    """K3-T against its plain version: the same indices and d2, exactly."""
+    gd, gi = nn_dist.nearest_neighbors_multi_cuda(src, tgt, valid)
+    wd, wi = icp.nearest_neighbors_plain(src, tgt, valid)
+    torch.cuda.synchronize()
+    both = torch.isfinite(wd)
+    err = float((gd[both] - wd[both]).abs().max()) if bool(both.any()) else 0.0
+    n_idx = int((gi != wi).sum())
+    same_inf = bool(torch.equal(torch.isinf(gd), torch.isinf(wd)))
+    print(f"  {label}, src {tuple(src.shape)}, tgt {tuple(tgt.shape)}: indices differing "
+          f"{n_idx}, d2 max abs err {err:.3g}, the same +inf entries {same_inf}")
+    if n_idx or err != 0.0 or not same_inf:
+        raise AssertionError(f"K3-T differs: {n_idx} indices, d2 by {err} ({label})")
+    return err
+
+
 def median_ms(fn, runs: int) -> float:
     """Median over ``runs`` calls, each fenced by CUDA events."""
     times = []
@@ -278,11 +361,40 @@ def timed(bucket: dict, name: str, fn):
     return wrapper
 
 
-def slam_path(cfg: SlamConfig, sim: RadarSimulator, dev, name_power: str) -> dict:
-    """Phase 8: the full-SLAM path, checked; returns launches and times."""
+def slam_scans(sim: RadarSimulator) -> tuple:
+    """The full-SLAM paths' 60 motion-distorted scans and ground truth."""
     gt = sim.circuit_trajectory(N_SLAM_SCANS + 1, radius=10.0, speed=6.0)
-    scans = [sim.render(gt[i], noise_seed=i, end_pose=gt[i + 1])
-             for i in range(N_SLAM_SCANS)]
+    return gt, [sim.render(gt[i], noise_seed=i, end_pose=gt[i + 1])
+                for i in range(N_SLAM_SCANS)]
+
+
+def check_slam_result(label: str, eng, gt: np.ndarray) -> tuple:
+    """The checks both full-SLAM paths share: keyframes, loops, a full
+    solve, ATE < 1 % of the path, a finite map.  Returns (loops, ATE, path
+    length, map points, trajectory)."""
+    traj = eng.trajectory()
+    world_map = eng.aggregate_map()
+    gt_rel = np.asarray([se2_between_np(gt[0], g) for g in gt[:N_SLAM_SCANS]])
+    path = float(np.sum(np.linalg.norm(np.diff(gt_rel[:, :2], axis=0), axis=1)))
+    n = min(len(traj), len(gt_rel))
+    ate = float(np.sqrt(np.mean(np.sum((traj[:n, :2, 3] - gt_rel[:n, :2]) ** 2, axis=1))))
+    loops = [(e.prev_idx, e.curr_idx) for e in eng.loops]
+    if eng.num_keyframes != N_SLAM_SCANS:
+        raise AssertionError(f"{label}: {eng.num_keyframes} keyframes, expected {N_SLAM_SCANS}")
+    if len(loops) < MIN_LOOPS or any(j - i <= 30 for i, j in loops):
+        raise AssertionError(f"{label}: loops {loops}: need >= {MIN_LOOPS}, each spanning > 30")
+    if eng.dispatch_counts["pgo_full"] < 1:
+        raise AssertionError(f"{label}: no full pose-graph solve ran")
+    if not ate < 0.01 * path:
+        raise AssertionError(f"{label}: ATE {ate} m is not below 1 % of the {path} m path")
+    if not (len(world_map) > 0 and np.isfinite(world_map).all() and np.isfinite(traj).all()):
+        raise AssertionError(f"{label}: empty or non-finite map or trajectory")
+    return loops, ate, path, len(world_map), traj
+
+
+def slam_path(cfg: SlamConfig, gt: np.ndarray, scans: list, dev, name_power: str) -> tuple:
+    """Phase 10: the full-SLAM path per scan, checked; returns its launches,
+    loops and per-scan times (ms)."""
     eng = slam_mod.SlamEngine(cfg, device=dev)
     # stage split: odometry, refine (inside the keyframe step), keyframe step
     stage = defaultdict(float)
@@ -307,8 +419,7 @@ def slam_path(cfg: SlamConfig, sim: RadarSimulator, dev, name_power: str) -> dic
     sc_corr.sc_shift_distances_cuda = recorded_k2
     per_scan = []
     try:
-        for kern in KERNELS:
-            kern.launch_count = 0
+        reset_counts()
         for i, s in enumerate(scans):
             stage.clear()
             t0 = time.perf_counter()
@@ -317,13 +428,12 @@ def slam_path(cfg: SlamConfig, sim: RadarSimulator, dev, name_power: str) -> dic
             per_scan.append((time.perf_counter() - t0, stage["odometry"],
                              stage["keyframe"] - stage["refine"], stage["refine"]))
         t0 = time.perf_counter()
-        traj = eng.trajectory()
+        eng.trajectory()
         final_flush = time.perf_counter() - t0
-        launches = {kern.__name__.rsplit(".", 1)[1]: kern.launch_count for kern in KERNELS}
+        launches = read_counts()
     finally:
         slam_mod.icp_ops.icp_se2 = icp_se2
         sc_corr.sc_shift_distances_cuda = k2
-    world_map = eng.aggregate_map()
 
     c = cfg.scancontext
     detecting = [k + 1 for k in range(eng.num_keyframes)
@@ -331,23 +441,18 @@ def slam_path(cfg: SlamConfig, sim: RadarSimulator, dev, name_power: str) -> dic
                  and (k + 1) > c.num_exclude_recent]
     n_detect = len(detecting)
     want_rows = [max(nk - c.num_exclude_recent, 1) for nk in detecting]
-    gt_rel = np.asarray([se2_between_np(gt[0], g) for g in gt[:N_SLAM_SCANS]])
-    path = float(np.sum(np.linalg.norm(np.diff(gt_rel[:, :2], axis=0), axis=1)))
-    n = min(len(traj), len(gt_rel))
-    ate = float(np.sqrt(np.mean(np.sum((traj[:n, :2, 3] - gt_rel[:n, :2]) ** 2, axis=1))))
-    odo = np.asarray(eng.odom_poses)[:n]
-    ate_odo = float(np.sqrt(np.mean(np.sum((odo[:, :2] - gt_rel[:n, :2]) ** 2, axis=1))))
-    loops = [(e.prev_idx, e.curr_idx) for e in eng.loops]
-    print(f"full-SLAM path: {N_SLAM_SCANS} scans, {eng.num_keyframes} keyframes, "
+    loops, ate, path, n_map, traj = check_slam_result("per-scan path", eng, gt)
+    odo = np.asarray(eng.odom_poses)
+    gt_rel = np.asarray([se2_between_np(gt[0], g) for g in gt[:len(odo)]])
+    ate_odo = float(np.sqrt(np.mean(np.sum((odo[:, :2] - gt_rel[:, :2]) ** 2, axis=1))))
+    print(f"full-SLAM path, per scan: {N_SLAM_SCANS} scans, {eng.num_keyframes} keyframes, "
           f"{n_detect} detecting, {n_icp[0]} candidates verified by ICP, "
           f"{len(loops)} loops accepted {loops}")
     print(f"  launches {launches}, dispatch counts {dict(eng.dispatch_counts)}")
     print(f"  K2 bank rows per launch {k2_rows} (searchable prefix, "
           f"max(keyframes - {c.num_exclude_recent}, 1))")
     print(f"  ATE {ate:.4f} m (odometry alone {ate_odo:.4f} m) over a {path:.2f} m "
-          f"path; map {len(world_map)} points")
-    if eng.num_keyframes != N_SLAM_SCANS:
-        raise AssertionError(f"{eng.num_keyframes} keyframes, expected {N_SLAM_SCANS}")
+          f"path; map {n_map} points")
     if launches["cen_peaks"] != N_SLAM_SCANS:
         raise AssertionError(f"K1 launched {launches['cen_peaks']} times")
     if launches["sc_corr"] != n_detect:
@@ -358,14 +463,8 @@ def slam_path(cfg: SlamConfig, sim: RadarSimulator, dev, name_power: str) -> dic
     if n_icp[0] == 0 or launches["nn_dist"] < 2 * n_icp[0]:
         raise AssertionError(f"K3 launched {launches['nn_dist']} times for "
                              f"{n_icp[0]} verified candidates")
-    if len(loops) < MIN_LOOPS or any(j - i <= 30 for i, j in loops):
-        raise AssertionError(f"loops {loops}: need >= {MIN_LOOPS}, each spanning > 30")
-    if eng.dispatch_counts["pgo_full"] < 1:
-        raise AssertionError("no full pose-graph solve ran")
-    if not ate < 0.01 * path:
-        raise AssertionError(f"ATE {ate} m is not below 1 % of the {path} m path")
-    if not (len(world_map) > 0 and np.isfinite(world_map).all() and np.isfinite(traj).all()):
-        raise AssertionError("empty or non-finite map or trajectory")
+    if launches["sc_corr_multi"] or launches["nn_dist_multi"]:
+        raise AssertionError(f"the per-scan path launched a T-slot kernel: {launches}")
 
     steps = np.asarray(per_scan[1:]) * 1e3   # scan 0 only seeds the carry
     med = np.median(steps, axis=0)
@@ -376,7 +475,126 @@ def slam_path(cfg: SlamConfig, sim: RadarSimulator, dev, name_power: str) -> dic
           f"{steps[:, 2].sum():.1f}, refine {steps[:, 3].sum():.1f} ms; final "
           f"drain + trajectory {1e3 * final_flush:.1f} ms; host clock after "
           f"synchronize [{name_power}]")
-    return launches
+    whole = 1e3 * (sum(x[0] for x in per_scan) + final_flush) / N_SLAM_SCANS
+    print(f"  per-scan run: {whole:.3f} ms per scan over the whole run (the "
+          f"{N_SLAM_SCANS} process calls and the final drain) [{name_power}]")
+    return launches, loops, traj, med[0], whole
+
+
+def streaming_path(cfg: SlamConfig, gt: np.ndarray, scans: list, dev, name_power: str,
+                   per_scan_loops: list, per_scan_traj: np.ndarray) -> tuple:
+    """Phase 11: the same scans through begin_chunk / finish_chunk, chunks of
+    CHUNK scans, two in flight; returns its launches, loops, the median ms
+    per scan of its chunk steps and its whole-run ms per scan."""
+    eng = slam_mod.SlamEngine(cfg, device=dev)
+    c = cfg.scancontext
+    per_kf = [0, 0]      # keyframes sent down the per-keyframe path, detecting ones
+    add_keyframe = eng._add_keyframe
+
+    def counted_add(*args, **kwargs):
+        k = eng.num_keyframes
+        per_kf[0] += 1
+        per_kf[1] += bool(eng.cfg.do_slam and (k + 1) % c.detect_every_n_keyframes == 0
+                          and (k + 1) > c.num_exclude_recent)
+        return add_keyframe(*args, **kwargs)
+
+    segments = [0, 0]    # segments, segments that detect
+    get_segment = eng._get_segment
+
+    def counted_segment(tp, with_detect):
+        segments[0] += 1
+        segments[1] += bool(with_detect)
+        return get_segment(tp, with_detect)
+
+    icp_calls = []       # K3-T calls of each T-slot ICP
+    icp_multi, nn_multi = slam_mod.icp_ops.icp_se2_multi, icp.nearest_neighbors_multi
+
+    def counted_icp_multi(*args, **kwargs):
+        icp_calls.append(0)
+        return icp_multi(*args, **kwargs)
+
+    def counted_nn_multi(*args, **kwargs):
+        icp_calls[-1] += 1
+        return nn_multi(*args, **kwargs)
+
+    n_icp = [0]
+    icp_se2 = slam_mod.icp_ops.icp_se2
+
+    def counted_icp(*args, **kwargs):
+        n_icp[0] += 1
+        return icp_se2(*args, **kwargs)
+
+    # the keyframe work: segments, per-keyframe steps, refines (each call
+    # fenced by synchronize, as in the per-scan path's split)
+    stage = defaultdict(float)
+    eng._add_keyframe = timed(stage, "keyframe", counted_add)
+    eng._get_segment = counted_segment
+    eng._dispatch_segment = timed(stage, "segment", eng._dispatch_segment)
+    eng._refine_graph = timed(stage, "refine", eng._refine_graph)
+    slam_mod.icp_ops.icp_se2_multi, icp.nearest_neighbors_multi = counted_icp_multi, counted_nn_multi
+    slam_mod.icp_ops.icp_se2 = counted_icp
+    steps = []
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t_run = time.perf_counter()
+        for c0 in range(0, N_SLAM_SCANS, CHUNK):
+            t0 = time.perf_counter()
+            chunk = np.stack(scans[c0:c0 + CHUNK])
+            eng.begin_chunk(chunk, timestamps=[i * 0.25 for i in range(c0, c0 + len(chunk))])
+            if eng.inflight_chunks >= 2:
+                eng.finish_chunk()
+            torch.cuda.synchronize()
+            steps.append(1e3 * (time.perf_counter() - t0) / len(chunk))
+        eng.current_pose()
+        torch.cuda.synchronize()
+        whole = 1e3 * (time.perf_counter() - t_run) / N_SLAM_SCANS
+        launches = read_counts()
+    finally:
+        slam_mod.icp_ops.icp_se2_multi, icp.nearest_neighbors_multi = icp_multi, nn_multi
+        slam_mod.icp_ops.icp_se2 = icp_se2
+    loops, ate, path, n_map, traj = check_slam_result("streamed path", eng, gt)
+    print(f"full-SLAM path, streamed in chunks of {CHUNK}, two in flight: {eng.num_keyframes} "
+          f"keyframes, {segments[0]} segments ({segments[1]} detecting), {per_kf[0]} "
+          f"keyframes on the per-keyframe path ({per_kf[1]} detecting), {n_icp[0]} of them "
+          f"verified by ICP, T-slot ICPs {len(icp_calls)} with K3-T calls {icp_calls}, "
+          f"{len(loops)} loops accepted {loops}")
+    print(f"  launches {launches}, dispatch counts {dict(eng.dispatch_counts)}")
+    print(f"  ATE {ate:.4f} m over a {path:.2f} m path; map {n_map} points; keyframe "
+          f"positions differ from the per-scan run's by at most "
+          f"{float(np.abs(traj[:, :2, 3] - per_scan_traj[:, :2, 3]).max()):.3g} m")
+    only_stream = sorted(set(loops) - set(per_scan_loops))
+    only_scan = sorted(set(per_scan_loops) - set(loops))
+    print(f"  loops streamed vs per scan: only streamed {only_stream}, only per scan "
+          f"{only_scan}, common {len(set(loops) & set(per_scan_loops))}")
+    if eng.dispatch_counts["kf_segment"] < 1 or segments[0] != eng.dispatch_counts["kf_segment"]:
+        raise AssertionError(f"{segments[0]} segments, dispatch counts "
+                             f"{dict(eng.dispatch_counts)}")
+    if launches["sc_corr_multi"] != segments[1]:
+        raise AssertionError(f"K2-T launched {launches['sc_corr_multi']} times for "
+                             f"{segments[1]} detecting segments")
+    if len(icp_calls) != segments[1] or launches["nn_dist_multi"] != sum(icp_calls):
+        raise AssertionError(f"K3-T launched {launches['nn_dist_multi']} times, the "
+                             f"T-slot ICPs called it {icp_calls}")
+    if any(n > cfg.icp.max_iters + 1 for n in icp_calls):
+        raise AssertionError(f"a T-slot ICP called K3-T more than max_iters + 1 times")
+    if launches["sc_corr"] != per_kf[1]:
+        raise AssertionError(f"K2 launched {launches['sc_corr']} times for {per_kf[1]} "
+                             f"detecting keyframes on the per-keyframe path")
+    if launches["nn_dist"] < 2 * n_icp[0] or (n_icp[0] == 0 and launches["nn_dist"]):
+        raise AssertionError(f"K3 launched {launches['nn_dist']} times for {n_icp[0]} "
+                             f"per-keyframe candidates")
+    if launches["cen_peaks"] != N_SLAM_SCANS + 1:
+        # scan 0 seeds the carry and then registers against itself in chunk 0
+        raise AssertionError(f"K1 launched {launches['cen_peaks']} times")
+    med = float(np.median(steps))
+    print(f"SlamEngine streamed (begin_chunk / finish_chunk), SlamConfig(): median "
+          f"{med:.3f} ms per scan over its {len(steps)} chunk steps {['%.3f' % x for x in steps]}, "
+          f"{whole:.3f} ms per scan over the whole run with the final drain; sums "
+          f"segments {1e3 * stage['segment']:.1f}, per-keyframe steps "
+          f"{1e3 * stage['keyframe']:.1f}, refine (all) {1e3 * stage['refine']:.1f} ms; host "
+          f"clock after synchronize [{name_power}]")
+    return launches, loops, med, whole
 
 
 def main() -> None:
@@ -426,8 +644,7 @@ def main() -> None:
 
     odo = RadarOdometry(cfg, device=dev)
     est, step_s, oks = [], [], []
-    for kern in KERNELS:
-        kern.launch_count = 0
+    reset_counts()
     for i, s in enumerate(scans):
         t0 = time.perf_counter()
         pose, _ = odo.process(s)
@@ -437,7 +654,7 @@ def main() -> None:
         if i > 0:
             step_s.append(dt)
             oks.append(odo.last_ok)
-    odo_launches = {kern.__name__.rsplit(".", 1)[1]: kern.launch_count for kern in KERNELS}
+    odo_launches = read_counts()
     est = np.asarray(est)
     gt_rel = np.asarray([se2_between_np(gt[0], g) for g in gt])
     ate = float(np.sqrt(np.mean(np.sum((est[:, :2] - gt_rel[:, :2]) ** 2, axis=1))))
@@ -514,11 +731,62 @@ def main() -> None:
     if not (bool(torch.isinf(nd).all()) and bool((ni == 0).all())):
         raise AssertionError("K3 with no valid target: want inf and index 0")
 
-    # 8. the full-SLAM path
-    launches = slam_path(cfg, sim, dev, name_power)
-
-    # 9. K2 and K3 times at the main path's shapes
+    # 8. K2-T against its plain version
+    rng = np.random.default_rng(23)
+    picks = np.concatenate([[0], rng.choice(np.arange(400, live_bank.shape[0]), SLOTS - 1,
+                                            replace=False)])
+    queries = torch.cat([query[None], live_bank[torch.as_tensor(picks[1:], device=dev)]])
+    ring_banks = ringkey_banks(queries, live_bank, 10)
     prefix = live_bank[:30]   # the SLAM run's largest searchable prefix
+    print("K2-T vs plain (one launch for all slots):")
+    k2t_err = max(
+        check_k2t("400 live, 3696 zero", queries, bank),
+        check_k2t("all live", queries, live_bank),
+        check_k2t("30-row prefix", queries, prefix),
+        check_k2t("per-slot ring-key candidates", queries, ring_banks),
+    )
+    one = sc_corr.sc_shift_distances_multi_cuda(query[None], live_bank)[0]
+    single = sc_corr.sc_shift_distances_cuda(query, live_bank)
+    torch.cuda.synchronize()
+    print(f"  T = 1 against K2 on the all-live bank: bit-equal {bool(torch.equal(one, single))}")
+    if not torch.equal(one, single):
+        raise AssertionError("K2-T with one slot is not bit-equal to K2")
+
+    # 9. K3-T against its plain version: 16 slots at (1024, 8192)
+    src_t = torch.as_tensor(rng.uniform(-150, 150, (SLOTS, 1024, 2)), dtype=torch.float32,
+                            device=dev)
+    tgt_t = torch.as_tensor(rng.uniform(-150, 150, (SLOTS, 8192, 2)), dtype=torch.float32,
+                            device=dev)
+    # masks that differ per slot: a slot's share of invalid targets from 0 to 0.9
+    tv_t = torch.as_tensor(rng.random((SLOTS, 8192)) >= np.linspace(0, 0.9, SLOTS)[:, None],
+                           device=dev)
+    print("K3-T vs plain (one launch for all slots):")
+    k3t_err = max(
+        check_k3t("masks differing per slot", src_t, tgt_t, tv_t),
+        check_k3t("every target tied across the chunks", src_t,
+                  tgt_t[:, :1024].repeat(1, 8, 1), tv_t),
+    )
+    od, oi = nn_dist.nearest_neighbors_multi_cuda(src[None], tgt[None], tv[None])
+    sd, si = nn_dist.nearest_neighbors_cuda(src, tgt, tv)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(od[0], sd) and torch.equal(oi[0], si))
+    print(f"  T = 1 against K3 at (1024, 8192): bit-equal {same}")
+    if not same:
+        raise AssertionError("K3-T with one problem is not bit-equal to K3")
+
+    # 10. the full-SLAM path, per scan
+    gt_slam, slam_scan_list = slam_scans(sim)
+    launches, scan_loops, scan_traj, scan_med, scan_whole = slam_path(
+        cfg, gt_slam, slam_scan_list, dev, name_power)
+
+    # 11. the full-SLAM path, streamed
+    stream_launches, _, stream_med, stream_whole = streaming_path(
+        cfg, gt_slam, slam_scan_list, dev, name_power, scan_loops, scan_traj)
+    print(f"full SLAM, ms per scan: per-scan median {scan_med:.3f} / whole run "
+          f"{scan_whole:.3f}, streamed median {stream_med:.3f} / whole run "
+          f"{stream_whole:.3f}; one call, host clock [{name_power}]")
+
+    # 12. kernel times at the main path's shapes
     for label, b in (("30 rows", prefix), ("all live", live_bank)):
         k2_ms, k2_plain, pa, pb = kernel_vs_plain(
             lambda: sc_corr.sc_shift_distances_cuda(query, b),
@@ -532,8 +800,20 @@ def main() -> None:
     print(f"K3 nearest_neighbors (1024, 2) x (8192, 2): kernel {k3_ms:.4f} ms, plain "
           f"{k3_plain:.4f} ms (halves {pa:.4f} / {pb:.4f}), median of {TIMED_RUNS} "
           f"CUDA-event-timed runs each [{name_power}]")
+    k2t_ms, k2t_plain, pa, pb = kernel_vs_plain(
+        lambda: sc_corr.sc_shift_distances_multi_cuda(queries, prefix),
+        lambda: scancontext.sc_shift_distance_matrix_multi_plain(queries, prefix))
+    print(f"K2-T sc_shift_distances_multi {tuple(queries.shape)} x {tuple(prefix.shape)}: "
+          f"kernel {k2t_ms:.4f} ms, plain {k2t_plain:.4f} ms (halves {pa:.4f} / {pb:.4f}), "
+          f"median of {TIMED_RUNS} CUDA-event-timed runs each [{name_power}]")
+    k3t_ms, k3t_plain, pa, pb = kernel_vs_plain(
+        lambda: nn_dist.nearest_neighbors_multi_cuda(src_t, tgt_t, tv_t),
+        lambda: icp.nearest_neighbors_plain(src_t, tgt_t, tv_t))
+    print(f"K3-T nearest_neighbors_multi {tuple(src_t.shape)} x {tuple(tgt_t.shape)}: "
+          f"kernel {k3t_ms:.4f} ms, plain {k3t_plain:.4f} ms (halves {pa:.4f} / {pb:.4f}), "
+          f"median of {TIMED_RUNS} CUDA-event-timed runs each [{name_power}]")
 
-    # 10. device time per launch against the bound, at the main path's shapes
+    # 13. device time per launch against the bound, at the main path's shapes
     fc = cfg.features
     na, nbp = x.shape
     ntaps = cen2019.smoothing_taps(fc).numel()
@@ -548,6 +828,16 @@ def main() -> None:
         return (4 * (nr * ns + n_rows * nr * ns + n_rows * ns),
                 2 * n_rows * nr * ns * ns + 3 * n_rows * nr * ns)
 
+    def k2t_work(q: torch.Tensor, b: torch.Tensor) -> tuple:
+        # the T queries and the bank (shared or per slot) read once, (T, N,
+        # S) written once; two operations per slot, row, cell and shift,
+        # three per cell of the bank and the queries for the column norms
+        t_slots, nr, ns = q.shape
+        n_rows = b.shape[-3]
+        bank_rows = b.numel() // (nr * ns)
+        return (4 * (t_slots * nr * ns + bank_rows * nr * ns + t_slots * n_rows * ns),
+                2 * t_slots * n_rows * nr * ns * ns + 3 * (bank_rows + t_slots) * nr * ns)
+
     for label, b in (("30 rows, the SLAM run's largest prefix", prefix),
                      ("400 live, 3696 zero", bank)):
         b_ms, b_by = bound(*k2_work(b))
@@ -556,9 +846,17 @@ def main() -> None:
               f"{sc_corr.launch_geometry(b.shape[0])[0]}): device {dev_ms:.5f} ms per "
               f"launch, bound {1e3 * b_ms:.3f} us by {b_by}, share {b_ms / dev_ms:.4f} "
               f"[{name_power}]")
+    for label, b in (("400 live, 3696 zero", bank), ("per-slot ring-key candidates",
+                                                      ring_banks)):
+        b_ms, b_by = bound(*k2t_work(queries, b))
+        dev_ms = device_ms(lambda: sc_corr.sc_shift_distances_multi_cuda(queries, b))
+        print(f"sc_shift_distances_multi {tuple(queries.shape)} x {tuple(b.shape)} ({label}): "
+              f"device {dev_ms:.5f} ms per launch, bound {1e3 * b_ms:.3f} us by {b_by}, "
+              f"share {b_ms / dev_ms:.4f} [{name_power}]")
+    n_valid_t = int(tv_t.sum())
     specs = {
         # name: (launch, bytes moved, fp32 operations, ms, plain ms, max abs
-        # err, source, TPU kernel)
+        # err, counter, source, TPU kernel)
         "cen2019_scores": (
             lambda: cen_peaks.cen2019_scores_cuda(x, fc, cfg.radar),
             # the scan read once, the map written once; per pixel 2 per tap
@@ -566,41 +864,55 @@ def main() -> None:
             # smoothing, 1 division, 3 for h, 4 for the row mean and
             # variance, 1 for the whole-scan sum of h
             8 * na * nbp, na * nbp * (2 * ntaps + 17),
-            k1_ms, k1_plain, k1_err, "cen_peaks", "cen_peaks.py:121"),
+            k1_ms, k1_plain, k1_err, "cen_peaks", "cen_peaks", "cen_peaks.py:121"),
         "sc_shift_distances": (
             lambda: sc_corr.sc_shift_distances_cuda(query, live_bank),
             *k2_work(live_bank),
-            k2_ms, k2_plain, k2_err, "sc_corr", "sc_corr.py:49"),
+            k2_ms, k2_plain, k2_err, "sc_corr", "sc_corr", "sc_corr.py:49"),
         "nearest_neighbors": (
             lambda: nn_dist.nearest_neighbors_cuda(src, tgt, tv),
             # src, tgt and the mask read once, (d2, int64 index) written
             # once; 5 operations (2 sub, 2 mul, 1 add) per query and VALID
             # target, as this run's data needs
             8 * nq + 9 * nt + 12 * nq, 5 * nq * n_valid,
-            k3_ms, k3_plain, k3_err, "nn_dist", "nn_dist.py:42"),
+            k3_ms, k3_plain, k3_err, "nn_dist", "nn_dist", "nn_dist.py:42"),
+        "sc_shift_distances_multi": (
+            lambda: sc_corr.sc_shift_distances_multi_cuda(queries, prefix),
+            *k2t_work(queries, prefix),
+            k2t_ms, k2t_plain, k2t_err, "sc_corr_multi", "sc_corr", "sc_corr.py:49"),
+        "nearest_neighbors_multi": (
+            lambda: nn_dist.nearest_neighbors_multi_cuda(src_t, tgt_t, tv_t),
+            # K3's count per slot: each slot's valid targets
+            SLOTS * (8 * nq + 9 * nt + 12 * nq), 5 * nq * n_valid_t,
+            k3t_ms, k3t_plain, k3t_err, "nn_dist_multi", "nn_dist", "nn_dist.py:42"),
     }
     report = []
-    for name, (launch, n_bytes, n_ops, ms, plain, err, src_name, tpu) in specs.items():
-        odo_n = odo_launches[src_name]
+    for name, (launch, n_bytes, n_ops, ms, plain, err, counter, src_name,
+               tpu) in specs.items():
+        odo_n = odo_launches.get(counter, 0)
         dev_ms = device_ms(launch)
         b_ms, b_by = bound(n_bytes, n_ops)
         per_call = kernels_per_call(launch)
+        main = stream_launches if counter.endswith("_multi") else launches
         print(f"{name}: device {dev_ms:.5f} ms per launch (CUDA events over "
               f"{DEVICE_LAUNCHES} back-to-back launches), bound {1e3 * b_ms:.3f} us by "
               f"{b_by} ({n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.2f} Mop), share "
               f"{b_ms / dev_ms:.4f}; wrapper-inclusive {ms:.4f} ms; launches odometry "
-              f"{odo_n}, SLAM {launches[src_name]}; device kernels per call: "
+              f"{odo_n}, SLAM per scan {launches[counter]}, streamed "
+              f"{stream_launches[counter]}; device kernels per call: "
               f"{', '.join(f'{k} x{c}' for k, c in per_call) or 'not measured (no device events)'}"
               f" [{name_power}]")
         if per_call and sum(c for _, c in per_call) != 1:
             raise AssertionError(f"{name}: one call ran {per_call}, expected one kernel")
+        if main[counter] == 0:
+            raise AssertionError(f"{name}: no launch on its main path")
         report.append({
             "name": name, "route": "cuda",
             "source": f"navtech_radar_slam_torch/csrc/{src_name}.cu",
             "replaces": f"navtech_radar_slam_tpu/ops/pallas/{tpu}",
-            "launches": launches[src_name], "launches_odometry": odo_n,
-            "launches_slam": launches[src_name], "max_abs_err": err,
-            "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+            "launches": main[counter], "launches_odometry": odo_n,
+            "launches_slam": launches[counter], "launches_streaming": stream_launches[counter],
+            "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
 

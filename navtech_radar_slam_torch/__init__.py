@@ -5,12 +5,20 @@ NVIDIA Hopper GPU.  The JAX package stays the reference: every module here
 carries the name of its JAX counterpart, and the tests hold each against it
 on the same numpy inputs.
 
-Ported so far: the radar-odometry front-end (``models.odometry``), i.e.
+Ported so far: the radar-odometry front-end (``models.odometry``) and the
+full-SLAM engine (``models.slam.SlamEngine``), per scan and streamed:
 
   polar scan -> cen2019 peaks  (ops.cen2019; CUDA kernel ops.kernels.cen_peaks)
              -> constellation descriptors + matching   (ops.features)
              -> ORORA-style robust registration        (ops.registration)
              -> two de-skew re-registrations, host pose in f64
+  keyframe   -> voxel filter, ScanContext descriptor, bank insert
+             -> loop search  (ops.scancontext; CUDA kernel ops.kernels.sc_corr)
+             -> submap ICP   (ops.icp; CUDA kernel ops.kernels.nn_dist)
+             -> robust pose-graph refine               (models.posegraph)
+  chunk      -> odometry of S scans on the device, keyframes in segments of
+                up to 16 slots: one T-slot search (K2-T) per segment and one
+                T-slot nearest-neighbour launch (K3-T) per ICP iteration
 
 The package stands alone: it keeps its own copies of the configuration
 (``config``) and of the data helpers it uses (``data``: the simulator and

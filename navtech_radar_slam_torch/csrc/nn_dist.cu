@@ -47,9 +47,27 @@
 // rank 0 reads the others through distributed shared memory in rank order
 // and writes the result.  Chosen over a 64-bit atomicMin on
 // (d2 bits << 32 | index): the cluster merge needs no initialised output,
-// no memset launch and no global atomics, and is deterministic.  A batch
-// axis over ICP problems (the segment slots of the streaming engine) is
-// later work.
+// no memset launch and no global atomics, and is deterministic.
+//
+// K3-T, T problems in one launch (nn_dist_multi_launch), replaces the
+// jax.vmap of the same TPU kernel through the streaming segment's T-slot
+// ICP (navtech_radar_slam_tpu/models/slam.py, _make_kf_segment: vmap of
+// detect_one -> _verify_candidate -> ops/icp.py::icp_se2): src (T, Nq, 2),
+// tgt (T, Nt, 2), valid (T, Nt) into (T, Nq) d2 and index.  At the main
+// path's shapes, T = 16 slots at (1024, 8192), it reads 1.4 MB and writes
+// 0.2 MB (0.45 us at 3.35 TB/s) and does up to 16 x 1024 x 8192 x 5 = 671
+// Mop of fp32 (10.0 us at 67 TFLOP/s with every target valid): operations
+// bound it.  What the design does: the slots are grid axis z, each block
+// offsetting its queries, targets, mask and outputs by its slot and then
+// running K3's block as it is (clusters stay along the target chunks, one
+// cluster per query tile of one slot), so slot t's result is K3's for
+// problem t bit for bit and T = 1 is K3.  At 16 slots the grid is 8 x 64 x
+// 16 = 8,192 blocks of 128 threads, several waves over the 132 SMs, so the
+// launch's fixed cost, which sets K3's time at one problem (~9.8 us against
+// a 0.5 us bound), is paid once for 16 problems.  ptxas (-Xptxas -v, which
+// chip_smoke.py prints): 40 registers, 8,832 bytes of shared memory, no
+// spills, no stack.  Measured (chip_smoke.py, PERF.md): about 71 us at 16
+// slots, 4.5 us a problem.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -67,6 +85,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kStage = 1024;                   // targets per shared-memory step
 constexpr int kMaxChunks = 8;                  // portable cluster size limit
 constexpr int kMaxTiles = 65535;               // gridDim.y limit
+constexpr int kMaxSlots = 65535;               // gridDim.z limit
 
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 
@@ -84,6 +103,15 @@ nn_dist_kernel(const float2* __restrict__ src, const float2* __restrict__ tgt,
   __shared__ int part_i[kWarps][kTileQ];
   __shared__ float blk_d[kTileQ];
   __shared__ int blk_i[kTileQ];
+
+  // slot blockIdx.z: its queries, targets, mask and outputs; slot 0 reads
+  // and writes what a single problem does
+  const size_t slot = blockIdx.z;
+  src += slot * nq;
+  tgt += slot * nt;
+  valid += slot * nt;
+  dmin += slot * nq;
+  idx += slot * nq;
 
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
@@ -188,29 +216,18 @@ nn_dist_kernel(const float2* __restrict__ src, const float2* __restrict__ tgt,
   cluster.sync();
 }
 
-}  // namespace
-
-// Launch constants the Python wrapper mirrors (ops/kernels/nn_dist.py).
-extern "C" int nn_dist_query_tile() { return kTileQ; }
-extern "C" int nn_dist_max_chunks() { return kMaxChunks; }
-
-// src (Nq, 2) and tgt (Nt, 2) contiguous float32, valid (Nt,) bool (one byte
-// each), outputs dmin (Nq,) float32 and idx (Nq,) int64, all on the device.
-// The targets are cut into `chunks` (1..8) contiguous chunks of `chunk_len`;
-// the grid is (chunks, ceil(Nq / 16)) with clusters of (chunks, 1, 1).
-// Returns the CUDA error (0 = cudaSuccess) and leaves no error pending.
-extern "C" int nn_dist_launch(const float* src, const float* tgt,
-                              const unsigned char* valid, float* dmin,
-                              long long* idx, int nq, int nt, int chunks,
-                              int chunk_len, void* stream) {
-  if (nq <= 0) return 0;
+int launch(const float* src, const float* tgt, const unsigned char* valid, float* dmin,
+           long long* idx, int slots, int nq, int nt, int chunks, int chunk_len,
+           void* stream) {
+  if (nq <= 0 || slots <= 0) return 0;
   const int tiles = (nq + kTileQ - 1) / kTileQ;
   if (nt < 0 || chunks < 1 || chunks > kMaxChunks || chunk_len < 1 ||
-      static_cast<long long>(chunks) * chunk_len < nt || tiles > kMaxTiles)
+      static_cast<long long>(chunks) * chunk_len < nt || tiles > kMaxTiles ||
+      slots > kMaxSlots)
     return static_cast<int>(cudaErrorInvalidValue);
 
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(chunks, tiles, 1);
+  cfg.gridDim = dim3(chunks, tiles, slots);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = static_cast<cudaStream_t>(stream);
@@ -226,4 +243,34 @@ extern "C" int nn_dist_launch(const float* src, const float* tgt,
       reinterpret_cast<const float2*>(tgt), valid, dmin, idx, nq, nt, chunk_len);
   const cudaError_t last = cudaGetLastError();  // clears a refused launch
   return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
+}  // namespace
+
+// Launch constants the Python wrapper mirrors (ops/kernels/nn_dist.py).
+extern "C" int nn_dist_query_tile() { return kTileQ; }
+extern "C" int nn_dist_max_chunks() { return kMaxChunks; }
+extern "C" int nn_dist_max_slots() { return kMaxSlots; }
+
+// src (Nq, 2) and tgt (Nt, 2) contiguous float32, valid (Nt,) bool (one byte
+// each), outputs dmin (Nq,) float32 and idx (Nq,) int64, all on the device.
+// The targets are cut into `chunks` (1..8) contiguous chunks of `chunk_len`;
+// the grid is (chunks, ceil(Nq / 16)) with clusters of (chunks, 1, 1).
+// Returns the CUDA error (0 = cudaSuccess) and leaves no error pending.
+extern "C" int nn_dist_launch(const float* src, const float* tgt,
+                              const unsigned char* valid, float* dmin,
+                              long long* idx, int nq, int nt, int chunks,
+                              int chunk_len, void* stream) {
+  return launch(src, tgt, valid, dmin, idx, 1, nq, nt, chunks, chunk_len, stream);
+}
+
+// The T-slot form: src (T, Nq, 2), tgt (T, Nt, 2), valid (T, Nt), dmin and
+// idx (T, Nq), slot t's problem at offset t of each.  One launch, the slots
+// on grid axis z (clusters stay along the target chunks); slot t's output is
+// what nn_dist_launch gives for problem t, bit for bit.
+extern "C" int nn_dist_multi_launch(const float* src, const float* tgt,
+                                    const unsigned char* valid, float* dmin,
+                                    long long* idx, int slots, int nq, int nt,
+                                    int chunks, int chunk_len, void* stream) {
+  return launch(src, tgt, valid, dmin, idx, slots, nq, nt, chunks, chunk_len, stream);
 }

@@ -64,13 +64,37 @@
 //     threads, 106 KB of shared memory: two blocks an SM, so 4096 rows are
 //     one wave of 256 blocks.
 // Every sum is taken in a fixed order, so two runs give the same matrix.
-// ptxas (-Xptxas -v, which chip_smoke.py prints): 55 and 56 registers for
-// the two instantiations, no spills, no stack.
+// ptxas (-Xptxas -v, which chip_smoke.py prints): 56 registers for each of
+// the two instantiations (55 and 56 before the slot offsets), no spills,
+// no stack.
 //
 // Measured on an H100 (chip_smoke.py, PERF.md): 4096 rows take about 26 us,
 // a third of the way to the bound, the contraction sharing the time with
 // the staging, the normalisation and the launch.  30 rows take about 9 us,
 // set by the chain of dependent phases of one block.
+//
+// K2-T, T query slots in one launch (sc_corr_multi_launch), replaces the
+// jax.vmap of the same TPU kernel over the streaming segment's T keyframes
+// (navtech_radar_slam_tpu/models/slam.py, _make_kf_segment: vmap of
+// detect_one): (T, R, S) queries against one (N, R, S) bank, or against
+// per-slot (T, N, R, S) banks (ring-key mode's gathered candidates), given
+// by a bank slot stride of 0 or N * R * S floats, into (T, N, S).  At the
+// main path's shapes, T = 16 queries on the 30-row searchable prefix, it
+// reads 77 KB of queries and 144 KB of bank and writes 115 KB (0.10 us at
+// 3.35 TB/s) and does 2 x 16 x 30 x 60 x 1200 = 69 Mop of fp32 (1.04 us at
+// 67 TFLOP/s): the fp32 units bound it, as K2's.  What the design does: the
+// slots are grid axis y of the same template, every block offsetting its
+// query, bank and output by its slot and then running K2's block as it is,
+// so slot t's result is K2's for (query t, bank t) bit for bit and T = 1 is
+// K2.  At 16 x 30 rows that is 15 x 16 = 240 split blocks, under two per
+// SM in one wave, so the launch should cost about one K2 block's chain of
+// phases, ~9 us, for all 16 queries.  Each block still stages its bank rows
+// and normalises them for its own slot: the T blocks of one row block read
+// the same rows (from L2 after the first).  Sharing each staged row across
+// the T queries, a wider right-hand side of the register tile, is the next
+// lever (PERF.md section 7).  ptxas: as above, the one kernel serves both.
+// Measured (chip_smoke.py, PERF.md): about 10.7 us at 16 x 30 rows, a
+// K2 launch's time for all 16 queries.
 
 #include <cuda_runtime.h>
 
@@ -88,6 +112,7 @@ constexpr int kQuadLoads = 8;     // query rings a lane loads at once
 constexpr int kSplitRows = 2;     // bank rows a block, split variant
 constexpr int kTileRows = 16;     // bank rows a block, tile variant
 constexpr int kMaxThreads = 384;  // 6 shift groups (S = 64) x 16 rows x 4 splits
+constexpr int kMaxSlots = 65535;  // query slots: gridDim.y
 
 // Dynamic shared memory of one block, offsets in floats, each 16-byte aligned:
 // bank rows (rows x stride), doubled query (R x W), partial sums (splits x
@@ -163,7 +188,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 template <int kRows, int kSplits>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 sc_corr_kernel(const float* __restrict__ query, const float* __restrict__ bank,
-               float* __restrict__ out, int n, int nr, int ns, bool vec) {
+               float* __restrict__ out, int n, int nr, int ns, size_t bank_slot_stride,
+               bool vec) {
   static_assert(kRows * kSplits % 4 == 0, "step 2 needs whole quads of lanes");
   extern __shared__ __align__(16) float smem[];
   const Layout L = layout(kRows, kSplits, nr, ns);
@@ -174,6 +200,13 @@ sc_corr_kernel(const float* __restrict__ query, const float* __restrict__ bank,
   unsigned char* qflag = reinterpret_cast<unsigned char*>(smem + L.flags);
   unsigned char* bflag = qflag + kMaxSectors;   // row i at bflag + i * 64
   unsigned long long* masks = reinterpret_cast<unsigned long long*>(smem + L.masks);
+
+  // slot blockIdx.y: its query, its bank (the shared one at a stride of 0)
+  // and its output block; slot 0 reads and writes what a single query does
+  const size_t slot = blockIdx.y;
+  query += slot * nr * ns;
+  bank += slot * bank_slot_stride;
+  out += slot * n * ns;
 
   const int nthreads = blockDim.x;   // (zpad / 12) * kRows * kSplits
   const int tid = threadIdx.x;
@@ -344,8 +377,8 @@ sc_corr_kernel(const float* __restrict__ query, const float* __restrict__ bank,
 }
 
 template <int kRows, int kSplits>
-int launch(const float* query, const float* bank, float* out, int n, int nr, int ns,
-           cudaStream_t stream) {
+int launch(const float* query, const float* bank, float* out, int slots, int n, int nr,
+           int ns, size_t bank_slot_stride, cudaStream_t stream) {
   constexpr int kDevices = 64;
   static int attr_bytes[kDevices] = {};   // the opt-in already set, per device
   const Layout L = layout(kRows, kSplits, nr, ns);
@@ -364,11 +397,28 @@ int launch(const float* query, const float* bank, float* out, int n, int nr, int
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_bytes[dev] = L.bytes;
   }
-  const bool vec = ns % 4 == 0 && reinterpret_cast<uintptr_t>(bank) % 16 == 0;
+  const bool vec = ns % 4 == 0 && reinterpret_cast<uintptr_t>(bank) % 16 == 0 &&
+                   bank_slot_stride % 4 == 0;
   const int threads = (L.zpad / kShifts) * kRows * kSplits;
-  const int blocks = (n + kRows - 1) / kRows;
-  kernel<<<blocks, threads, L.bytes, stream>>>(query, bank, out, n, nr, ns, vec);
+  const dim3 blocks((n + kRows - 1) / kRows, slots);
+  kernel<<<blocks, threads, L.bytes, stream>>>(query, bank, out, n, nr, ns, bank_slot_stride,
+                                               vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_variant(const float* query, const float* bank, float* out, int slots, int n,
+                   int nr, int ns, long long bank_slot_stride, int variant, void* stream) {
+  if (n <= 0 || slots <= 0) return 0;
+  if (nr < 1 || ns < 1 || ns > kMaxSectors || nr * ((ns + 3) & ~3) > kMaxCells ||
+      slots > kMaxSlots || bank_slot_stride < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t stride = static_cast<size_t>(bank_slot_stride);
+  if (variant == 0)
+    return launch<kSplitRows, 20>(query, bank, out, slots, n, nr, ns, stride, st);
+  if (variant == 1)
+    return launch<kTileRows, 4>(query, bank, out, slots, n, nr, ns, stride, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -376,6 +426,7 @@ int launch(const float* query, const float* bank, float* out, int n, int nr, int
 // Limits and tile heights the Python wrapper mirrors (ops/kernels/sc_corr.py).
 extern "C" int sc_corr_max_sectors() { return kMaxSectors; }
 extern "C" int sc_corr_max_cells() { return kMaxCells; }
+extern "C" int sc_corr_max_slots() { return kMaxSlots; }
 extern "C" int sc_corr_block_rows(int variant) {
   return variant == 0 ? kSplitRows : variant == 1 ? kTileRows : 0;
 }
@@ -385,11 +436,17 @@ extern "C" int sc_corr_block_rows(int variant) {
 // Returns the CUDA error (0 = cudaSuccess) and leaves no error pending.
 extern "C" int sc_corr_launch(const float* query, const float* bank, float* out, int n,
                               int nr, int ns, int variant, void* stream) {
-  if (n <= 0) return 0;
-  if (nr < 1 || ns < 1 || ns > kMaxSectors || nr * ((ns + 3) & ~3) > kMaxCells)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (variant == 0) return launch<kSplitRows, 20>(query, bank, out, n, nr, ns, st);
-  if (variant == 1) return launch<kTileRows, 4>(query, bank, out, n, nr, ns, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_variant(query, bank, out, 1, n, nr, ns, 0, variant, stream);
+}
+
+// The T-slot form: queries (T, R, S), out (T, N, S), and the bank of slot t
+// at bank + t * bank_slot_stride floats: a stride of 0 shares one (N, R, S)
+// bank, N * R * S gives every slot its own ((T, N, R, S)).  One launch, the
+// slots on grid axis y; slot t's output is what sc_corr_launch gives for
+// query t and bank t, bit for bit.
+extern "C" int sc_corr_multi_launch(const float* queries, const float* bank, float* out,
+                                    int slots, int n, int nr, int ns,
+                                    long long bank_slot_stride, int variant, void* stream) {
+  return launch_variant(queries, bank, out, slots, n, nr, ns, bank_slot_stride, variant,
+                        stream);
 }

@@ -1,8 +1,8 @@
 """The full SLAM engine in PyTorch: odometry + keyframing + ScanContext loop
 search + submap ICP verification + robust pose-graph refine + map output.
 
-Counterpart of the single-device, per-scan path of
-``navtech_radar_slam_tpu.models.slam.SlamEngine``:
+Counterpart of the single-device ``navtech_radar_slam_tpu.models.slam.
+SlamEngine``, per scan and streamed:
 
   process(scan) -> RadarOdometry.process          (K1 on a CUDA tensor)
                -> keyframe gate (accumulated translation)
@@ -12,28 +12,39 @@ Counterpart of the single-device, per-scan path of
                   (submap build + icp_se2, K3 per iteration + both gates)
                -> deferred loop decisions, packed on the device and fetched
                   at a flush (loop_commit_defer) -> loop factors -> PGO
+  begin_chunk(scans) -> make_odometry_sequence     (S scans, carry on the device)
+  finish_chunk()     -> one packed fetch (odometry + pending decisions)
+               -> keyframe gate per scan, GPS table association
+               -> _process_keyframes: runs of keyframes as ONE segment
+                  (_kf_segment_body: batched inserts, then T-slot detect,
+                  K2-T once, and T-slot ICP, K3-T once per iteration),
+                  the per-keyframe path where per-scan semantics need a
+                  host step (drain, growth, add_gps, in-line refine)
   trajectory() / aggregate_map()                   (drain, then read out)
 
 The engine keeps its banks and graph on ``device`` and writes them in place
 (the JAX engine returns new arrays; in place saves copying the 4096-row
-banks per keyframe).  ``dispatch_counts`` counts the JAX engine's sites on
-this path (``kf_step``, ``decision_fetch``, ``pgo_full``, ``pgo_fast``,
-``pose_slice``) at the same places.
+banks per keyframe).  ``dispatch_counts`` counts the JAX engine's sites
+(``kf_step``, ``decision_fetch``, ``pgo_full``, ``pgo_fast``,
+``pose_slice``; streamed also ``odometry_seq``, ``pack_odo_fetch`` and
+``kf_segment``) at the same places.
 
 Host reads per scan: the odometry result (one fetch), the pose estimate
 after a keyframe, and on each detecting keyframe one read of the
 candidate's ``found`` flag, so that no ICP runs without a candidate (the
-JAX engine's ``lax.cond``).
+JAX engine's ``lax.cond``).  Streamed: one fetch per chunk, and inside a
+segment no read but the T-slot ICP's "every slot converged" check.
 
-Not ported yet: the streaming engine (process_chunk, begin/finish_chunk,
-fused keyframe segments, prewarm), attach_prior_session / _rebase_session,
-the loop-debug dumps, set_gps_table, the mesh paths and StageTimers.
+Not ported yet: prewarm, attach_prior_session / _rebase_session, the
+loop-debug dumps, the mesh paths and StageTimers.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
+import warnings
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -41,7 +52,8 @@ import torch
 
 from navtech_radar_slam_torch.config import SlamConfig
 from navtech_radar_slam_torch.models import posegraph as pg
-from navtech_radar_slam_torch.models.odometry import RadarOdometry
+from navtech_radar_slam_torch.models.odometry import (RadarOdometry, extract_scan_features,
+                                                      make_odometry_sequence)
 from navtech_radar_slam_torch.ops import icp as icp_ops
 from navtech_radar_slam_torch.ops import scancontext as sc_ops
 from navtech_radar_slam_torch.ops.voxel import voxel_dedup_mask
@@ -85,24 +97,50 @@ def _build_submap(clouds: torch.Tensor, clouds_valid: torch.Tensor,
     return flat[take], vflat[take]
 
 
-def _empty_candidate(device) -> sc_ops.LoopCandidate:
-    """LoopCandidate with found=False."""
+def _build_submap_multi(clouds: torch.Tensor, clouds_valid: torch.Tensor,
+                        poses_se2: torch.Tensor, centers: torch.Tensor,
+                        num_kfs: torch.Tensor, half: int, max_pts: int,
+                        voxel: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_build_submap`` for T candidates at once (the vmapped JAX form):
+    centers and num_kfs (T,) -> (T, max_pts, 2) points and (T, max_pts)
+    mask, slot t being what ``_build_submap`` gives for its center."""
+    dev = clouds.device
+    t = centers.shape[0]
+    offsets = torch.arange(-half, half + 1, device=dev)
+    idx = centers[:, None] + offsets                                   # (T, W)
+    ok = (idx >= 0) & (idx < num_kfs[:, None])
+    idxc = torch.clamp(idx, 0, clouds.shape[0] - 1)
+    v = clouds_valid[idxc] & ok[..., None]                             # (T, W, K)
+    rel = geo.se2_between(poses_se2[centers][:, None].expand(idxc.shape + (3,)),
+                          poses_se2[idxc])
+    flat = geo.se2_apply(rel, clouds[idxc]).reshape(t, -1, 2)          # (T, W*K, 2)
+    vflat = voxel_dedup_mask(flat, v.reshape(t, -1), voxel)
+    prio = torch.where(vflat.reshape(v.shape),
+                       (half + 1 - torch.abs(offsets)).to(torch.float32)[:, None],
+                       torch.full((offsets.shape[0], 1), -1.0, device=dev)).reshape(t, -1)
+    _, take = sc_ops.top_k(prio, max_pts)
+    return (torch.gather(flat, 1, take[..., None].expand(-1, -1, 2)),
+            torch.gather(vflat, 1, take))
+
+
+def _empty_candidate(device, shape=()) -> sc_ops.LoopCandidate:
+    """LoopCandidate of the given batch shape with found=False."""
     return sc_ops.LoopCandidate(
-        idx=torch.full((), -1, dtype=torch.int64, device=device),
-        dist=torch.full((), float("inf"), device=device),
-        yaw=torch.zeros((), device=device),
-        found=torch.zeros((), dtype=torch.bool, device=device),
+        idx=torch.full(shape, -1, dtype=torch.int64, device=device),
+        dist=torch.full(shape, float("inf"), device=device),
+        yaw=torch.zeros(shape, device=device),
+        found=torch.zeros(shape, dtype=torch.bool, device=device),
     )
 
 
-def _empty_icp_result(device) -> icp_ops.IcpResult:
-    """IcpResult with accepted=False."""
+def _empty_icp_result(device, shape=()) -> icp_ops.IcpResult:
+    """IcpResult of the given batch shape with accepted=False."""
     return icp_ops.IcpResult(
-        rel_pose=torch.zeros(3, device=device),
-        fitness=torch.full((), float("inf"), device=device),
-        num_corr=torch.zeros((), dtype=torch.int64, device=device),
-        converged=torch.zeros((), dtype=torch.bool, device=device),
-        accepted=torch.zeros((), dtype=torch.bool, device=device),
+        rel_pose=torch.zeros(shape + (3,), device=device),
+        fitness=torch.full(shape, float("inf"), device=device),
+        num_corr=torch.zeros(shape, dtype=torch.int64, device=device),
+        converged=torch.zeros(shape, dtype=torch.bool, device=device),
+        accepted=torch.zeros(shape, dtype=torch.bool, device=device),
     )
 
 
@@ -156,6 +194,51 @@ def _verify_candidate(cand: sc_ops.LoopCandidate, clouds, clouds_valid, poses_se
     return res
 
 
+def _verify_candidate_multi(cands: sc_ops.LoopCandidate, clouds, clouds_valid, poses_se2,
+                            q_xy, q_valid, num_kfs: torch.Tensor, active: torch.Tensor,
+                            cfg: SlamConfig, path_cum=None,
+                            session_start: Optional[int] = None) -> icp_ops.IcpResult:
+    """``_verify_candidate`` for T slots at once (the vmapped JAX form):
+    cands of (T,) leaves, q_xy (T, K, 2), q_valid (T, K), num_kfs (T,),
+    active (T,).  Every slot builds its submap and enters one T-slot ICP
+    (``icp_se2_multi``); slots without a candidate, or inactive, start it
+    converged and return the empty result by select, as the vmapped
+    ``lax.cond`` does.  Makes no host read of ``found``."""
+    mq = cfg.icp.max_query_points
+    t, k_feats = q_xy.shape[:2]
+    dev = q_xy.device
+    if mq < k_feats:
+        # cap the ICP query cloud: valid points first, index order kept
+        prio = (q_valid.to(torch.float32)
+                - torch.arange(k_feats, device=dev) / (2.0 * k_feats))
+        _, take = sc_ops.top_k(prio, mq)
+        q_xy = torch.gather(q_xy, 1, take[..., None].expand(-1, -1, 2))
+        q_valid = torch.gather(q_valid, 1, take)
+    center = torch.clamp(cands.idx, min=0)
+    tgt, tgt_valid = _build_submap_multi(
+        clouds, clouds_valid, poses_se2, center, num_kfs, cfg.icp.submap_half_size,
+        cfg.icp.max_target_points, cfg.icp.submap_voxel_size)
+    zero = torch.zeros(t, device=dev)
+    init = (torch.stack([zero, zero, -cands.yaw], dim=-1) if cfg.icp.use_yaw_init
+            else torch.zeros((t, 3), device=dev))
+    run = cands.found & active
+    res = icp_ops.icp_se2_multi(q_xy, q_valid, tgt, tgt_valid, init, cfg.icp, run)
+    res = icp_ops.IcpResult(*(
+        torch.where(run.reshape((t,) + (1,) * (a.dim() - 1)), a, b)
+        for a, b in zip(res, _empty_icp_result(dev, (t,)))))
+    if path_cum is not None and cfg.icp.odom_consistency_frac > 0:
+        k = num_kfs - 1
+        rel_graph = geo.se2_between(poses_se2[center], poses_se2[k])
+        disagree = torch.linalg.norm(res.rel_pose[:, :2] - rel_graph[:, :2], dim=-1)
+        path = torch.abs(path_cum[k] - path_cum[center])
+        allowed = cfg.icp.odom_consistency_abs + cfg.icp.odom_consistency_frac * path
+        consistent = disagree <= allowed
+        if session_start is not None:
+            consistent = consistent | ((center < session_start) & (k >= session_start))
+        res = res._replace(accepted=res.accepted & consistent)
+    return res
+
+
 def _kf_step_body(cfg: SlamConfig, clouds, clouds_valid, bank, ring_keys,
                   g: pg.GraphArrays, k: int, xy, valid, odo_pose_se2, prev_odo_se2,
                   has_odom: bool, do_detect: bool, session_start: int):
@@ -199,14 +282,94 @@ def _kf_step_body(cfg: SlamConfig, clouds, clouds_valid, bank, ring_keys,
     return clouds, clouds_valid, bank, ring_keys, g, desc, cand, res
 
 
+def _kf_segment_body(cfg: SlamConfig, T: int, with_detect: bool, clouds, clouds_valid,
+                     bank, ring_keys, g: pg.GraphArrays, k0: int, m: int,
+                     sel: torch.Tensor, xys: torch.Tensor, valids: torch.Tensor,
+                     odo_poses: torch.Tensor, prev_odos: torch.Tensor, has_odoms: List[bool],
+                     gps_alts: torch.Tensor, gps_has: torch.Tensor, session_start: int):
+    """One segment of T keyframe slots, k0 .. k0 + T - 1, of which the first
+    ``m`` are real (counterpart of the program ``_make_kf_segment`` builds):
+    batched inserts, then, with ``with_detect``, detection and verification
+    of all T slots against the final banks, slot t seeing num_kf = k0 + t + 1
+    (its sequential visibility; poses do not change inside a segment).
+
+    The JAX ``dynamic_update_slice``s are slice assignments here, in place.
+    sel (T,) picks each slot's scan of the chunk's xys (S, K, 2) / valids
+    (S, K); odo_poses / prev_odos (T, 3), has_odoms (host bools), gps_alts
+    (T,) datum-relative and gps_has (T,).  Inactive tail slots are masked
+    all-invalid and write scratch rows past the real keyframes, which a
+    later insert overwrites.  The pose inits chain slot by slot on the
+    device, each from (3,)-shaped inputs as ``_kf_step_body`` takes them, so
+    the rows are the per-scan path's bit for bit; the GPS rows take the
+    shifted chain (slot t the pose of slot t - 1, slot 0 the last optimized
+    pose before the segment), which is what the per-scan path reads as the
+    last estimate.  One K2-T call for the segment, one K3-T call per ICP
+    iteration plus the final fitness; no host read but the T-slot ICP's
+    convergence check.
+
+    Returns (clouds, clouds_valid, bank, ring_keys, g, cands, ress,
+    last_pose), cands and ress with (T,) leaves."""
+    dev = xys.device
+    active = torch.arange(T, device=dev) < m
+    q_xy = xys[sel]                                                    # (T, K, 2)
+    q_valid = valids[sel] & active[:, None]
+    q_valid = voxel_dedup_mask(q_xy, q_valid, cfg.keyframes.keyframe_voxel_size)
+    descs = sc_ops.make_scancontext(q_xy, torch.zeros(q_xy.shape[1], device=dev), q_valid,
+                                    cfg.scancontext)
+    rows = slice(k0, k0 + T)
+    clouds[rows] = q_xy
+    clouds_valid[rows] = q_valid
+    bank[rows] = descs
+    ring_keys[rows] = sc_ops.ring_key(descs)
+
+    # graph rows: odometry measurements and chained pose inits
+    prev0 = g.poses[max(k0 - 1, 0)]
+    prev, inits, meas_rows = prev0, [], []
+    eye = torch.eye(4, device=dev)
+    for t in range(T):
+        meas = geo.se2_to_se3(geo.se2_between(prev_odos[t], odo_poses[t]))
+        if has_odoms[t]:
+            prev = geo.se3_mul(prev, meas)
+        else:
+            prev, meas = geo.se2_to_se3(odo_poses[t]), eye
+        inits.append(prev)
+        meas_rows.append(meas)
+    inits = torch.stack(inits)
+    g.poses[rows] = inits
+    g.odom_meas[rows] = torch.stack(meas_rows)
+    g.odom_valid[rows] = torch.as_tensor(has_odoms, device=dev)
+    prev_xys = torch.cat([prev0[None, :2, 3], inits[:-1, :2, 3]])
+    gps_rows = torch.cat([prev_xys, gps_alts[:, None]], dim=1).to(g.gps_meas.dtype)
+    g.gps_meas[rows] = torch.where(gps_has[:, None], gps_rows, g.gps_meas[rows])
+    g.gps_valid[rows] |= gps_has
+    g = g._replace(num_nodes=torch.tensor(k0 + m, device=dev))
+
+    if with_detect:
+        poses_se2 = geo.se3_to_se2(g.poses)
+        num_kfs = k0 + 1 + torch.arange(T, device=dev)
+        if cfg.scancontext.search_mode == "ringkey":
+            cands = sc_ops.detect_loop_ringkey_multi(descs, bank, ring_keys, k0,
+                                                     cfg.scancontext)
+        else:
+            cands = sc_ops.detect_loop_multi(descs, bank, k0, m, cfg.scancontext)
+        ress = _verify_candidate_multi(cands, clouds, clouds_valid, poses_se2, q_xy, q_valid,
+                                       num_kfs, active, cfg, path_cum=_odom_path_cum(g),
+                                       session_start=session_start)
+    else:
+        cands, ress = _empty_candidate(dev, (T,)), _empty_icp_result(dev, (T,))
+    last_pose = geo.se3_to_se2(g.poses[k0 + m - 1])
+    return clouds, clouds_valid, bank, ring_keys, g, cands, ress, last_pose
+
+
 def _pack_decision(cand: sc_ops.LoopCandidate, res: icp_ops.IcpResult) -> torch.Tensor:
     """One float32 vector [found, accepted, idx, dist, fitness, rel(3), yaw]
-    on the device, so a flush fetches every queued decision at once."""
+    on the device, each leaf raveled (T of each for a segment's (T,)
+    leaves, slot-major rel), so a flush fetches every queued decision at
+    once."""
     f32 = torch.float32
-    return torch.cat([torch.stack([cand.found.to(f32), res.accepted.to(f32),
-                                   cand.idx.to(f32), cand.dist.to(f32),
-                                   res.fitness.to(f32)]),
-                      res.rel_pose.to(f32), cand.yaw.to(f32)[None]])
+    return torch.cat([x.reshape(-1).to(f32) for x in (
+        cand.found, res.accepted, cand.idx, cand.dist, res.fitness, res.rel_pose,
+        cand.yaw)])
 
 
 class SlamEngine:
@@ -244,11 +407,23 @@ class SlamEngine:
         self._pending_gps: Optional[np.ndarray] = None
         #: first GPS-bearing keyframe's altitude, latched as the datum
         self.gps_alt_offset: Optional[float] = None
-        #: deferred loop decisions (keyframe, packed vector on the device),
-        #: fetched and committed once loop_commit_defer are queued or an
-        #: output consumer drains them
-        self._pending_loops: List[Tuple[int, torch.Tensor]] = []
+        #: deferred loop decisions, fetched and committed once
+        #: loop_commit_defer are queued or an output consumer drains them.
+        #: Entries are (ks, slots, packed): a keyframe's (k,), None and its
+        #: packed vector; a segment's detecting keyframes, their slots and
+        #: the packed (T,) leaves.  ``packed`` is a device tensor until a
+        #: finish_chunk fetch brings it to the host with the odometry.
+        self._pending_loops: List[Tuple[tuple, Optional[tuple], object]] = []
+        #: queued decisions (a segment entry holds several)
         self._pending_count = 0
+        #: (times, alts) of set_gps_table, for chunk mode; None: add_gps only
+        self._gps_table: Optional[Tuple[np.ndarray, np.ndarray]] = None
+        #: chunks begun but not finished, and the odometry twist and coast
+        #: chained between them on the device
+        self._inflight: collections.deque = collections.deque()
+        self._twist_dev: Optional[torch.Tensor] = None
+        self._coast_dev: Optional[torch.Tensor] = None
+        self._seq = None
         #: first keyframe of the current session (0: single session)
         self.session_start = 0
 
@@ -268,13 +443,38 @@ class SlamEngine:
         estimate."""
         self._pending_gps = np.asarray(xyz, np.float64)
 
+    def set_gps_table(self, times: np.ndarray, alts: np.ndarray):
+        """Register the run's GPS stream for chunk mode: each keyframe of a
+        chunk takes the first fix within pgo.gps_time_window of its
+        timestamp, and the segments write the factors on the device, the
+        same as the per-scan add_gps() path writes them.  ``times``
+        ascending; ``alts`` absolute (the first associated fix latches the
+        datum, as in add_gps)."""
+        self._gps_table = (np.asarray(times, np.float64), np.asarray(alts, np.float64))
+
+    def _associate_gps(self, ts: float) -> Optional[float]:
+        """First fix within gps_time_window of ``ts`` among the neighbours of
+        its insertion point, or None."""
+        times, alts = self._gps_table
+        j = int(np.searchsorted(times, ts))
+        for cand in (j - 1, j):
+            if 0 <= cand < len(times) and abs(times[cand] - ts) < self.cfg.pgo.gps_time_window:
+                return float(alts[cand])
+        return None
+
     def process(self, power, azimuths=None, timestamp: float = 0.0, ray_valid=None,
                 packed: bool = False) -> np.ndarray:
         """Feed one polar scan (float32, uint8, or with ``packed`` the 4-bit
         wire format); returns the current optimized pose [x, y, theta].
 
         ``ray_valid``: optional (NA,) per-azimuth validity; invalid rays are
-        zeroed on the device before feature extraction."""
+        zeroed on the device before feature extraction.  Chunks still in
+        flight are finished first; the step then advances the host carry,
+        so the next chunk re-seeds its twist and coast from it."""
+        if self._inflight:
+            self.drain_chunks()
+        self._twist_dev = None
+        self._coast_dev = None
         c = self.cfg
         pose, feats = self.odometry.process(power, azimuths, ray_valid=ray_valid,
                                             packed=packed)
@@ -293,6 +493,140 @@ class SlamEngine:
             self._add_keyframe(pose, feats.xy, feats.valid, timestamp)
             self.movement_accum = 0.0
         return self._pose_estimate()
+
+    # -- chunk (streaming) entry ---------------------------------------------
+
+    def process_chunk(self, powers, azimuths=None, timestamps=None, ray_valids=None,
+                      packed: bool = False) -> None:
+        """Feed S consecutive scans (S, NA, NB) at once: ``begin_chunk`` and
+        ``finish_chunk`` back to back.  Equivalent to S ``process`` calls
+        (the same gate, coast fallback and keyframes); returns nothing, since
+        a pose fetch would wait on the chunk's keyframe work: call
+        ``current_pose()``.  GPS: ``set_gps_table``; a pending ``add_gps``
+        fix attaches to the chunk's first keyframe."""
+        self.begin_chunk(powers, azimuths, timestamps, ray_valids, packed)
+        self.finish_chunk()
+
+    @property
+    def inflight_chunks(self) -> int:
+        """Chunks begun but not yet finished."""
+        return len(self._inflight)
+
+    def begin_chunk(self, powers, azimuths=None, timestamps=None, ray_valids=None,
+                    packed: bool = False) -> None:
+        """Queue a chunk's odometry on the device without fetching its
+        results; pair each call with one ``finish_chunk()`` (first in, first
+        out).  The odometry carry (features, twist, coast) chains between
+        chunks on the device, so chunk t + 1 can be queued before chunk t's
+        results reach the host.
+
+        ``azimuths``: (NA,) shared or (S, NA) per scan; ``ray_valids``:
+        optional (S, NA) per-azimuth validity; ``packed``: the 4-bit wire
+        format, as in ``process``."""
+        if self._pending_gps is not None and self.cfg.pgo.use_gps:
+            warnings.warn("chunk streaming with a pending GPS fix: it attaches to the "
+                          "chunk's first keyframe (per-scan association needs "
+                          "process(), chunked association set_gps_table())",
+                          stacklevel=2)
+        odo = self.odometry
+        powers = odo._to_device(powers)
+        n_scans = powers.shape[0]
+        timestamps = [0.0] * n_scans if timestamps is None else list(timestamps)
+        az = odo._az_dev if azimuths is None else odo._to_device(azimuths)
+        if ray_valids is not None:
+            ray_valids = odo._to_device(ray_valids)
+        if self._seq is None:
+            self._seq = make_odometry_sequence(self.cfg, return_features=True)
+        # scan 0 seeds the carry when there is none, then registers against
+        # itself inside the chunk; it is the first keyframe only at a fresh
+        # start (no scan counted yet), after a resume it only re-seeds, as in
+        # process()
+        seeded = odo.prev is None
+        fresh_start = seeded and self.num_scans == 0
+        if seeded:
+            odo.prev = extract_scan_features(
+                powers[0], az[0] if az.dim() == 2 else az, self.cfg,
+                None if ray_valids is None else ray_valids[0], packed)
+        twist_in = self._twist_dev
+        if twist_in is None:
+            twist_in = torch.as_tensor(odo.last_rel, dtype=torch.float32, device=self.device)
+        coast_in = self._coast_dev
+        if coast_in is None:
+            coast_in = torch.as_tensor(odo._coast, dtype=torch.int64, device=self.device)
+        self.dispatch_counts["odometry_seq"] += 1
+        (odo.prev, self._twist_dev, self._coast_dev, rels, oks, _, xys,
+         valids) = self._seq(powers, az, odo.prev, twist_in, coast_in,
+                             ray_valids=ray_valids, packed=packed)
+        # packed now, right behind the chunk's odometry on the stream
+        packed_odo = torch.cat([rels.reshape(-1).to(torch.float32), oks.to(torch.float32),
+                                self._coast_dev.reshape(1).to(torch.float32)])
+        self._inflight.append((n_scans, timestamps, seeded, fresh_start, packed_odo,
+                               xys, valids))
+
+    def finish_chunk(self) -> int:
+        """Fetch the oldest in-flight chunk's odometry results and run its
+        keyframe work (gate, segments, loop commits).  Returns the number of
+        scans it processed."""
+        if not self._inflight:
+            return 0
+        (n_scans, timestamps, seeded, fresh_start, packed_odo, xys,
+         valids) = self._inflight.popleft()
+        c = self.cfg
+        odo = self.odometry
+        # ONE fetch: the odometry vector and every pending decision pack
+        self.dispatch_counts["pack_odo_fetch"] += 1
+        pend = [i for i, (_, _, pk) in enumerate(self._pending_loops)
+                if isinstance(pk, torch.Tensor)]
+        parts = [packed_odo] + [self._pending_loops[i][2] for i in pend]
+        host = torch.cat(parts).cpu().numpy()
+        sizes = np.cumsum([x.numel() for x in parts])[:-1]
+        p, *decisions = np.split(host, sizes)
+        for i, h in zip(pend, decisions):
+            ks, slots, _ = self._pending_loops[i]
+            self._pending_loops[i] = (ks, slots, h)
+        rels = np.asarray(p[:3 * n_scans].reshape(n_scans, 3), np.float64)
+        oks = p[3 * n_scans:4 * n_scans] > 0.5
+        kfs = []   # (scan index, odometry pose after the scan, timestamp)
+        for i in range(n_scans):
+            odo.num_scans += 1
+            self.num_scans += 1
+            if seeded and i == 0:
+                # scan 0 only (re)seeded the carry; at a fresh start it is
+                # also the first keyframe (movement_accum stays 1e6, so the
+                # next scan passes the gate too)
+                if fresh_start:
+                    kfs.append((0, odo.pose.copy(), timestamps[0]))
+                continue
+            ok = bool(oks[i])
+            odo.last_ok = ok
+            if not ok:
+                odo.num_failures += 1
+            rel = rels[i]
+            odo.last_rel = rel.copy()
+            odo.last_applied_rel = rel.copy()
+            odo.pose = geo.se2_mul_np(odo.pose, rel)
+            self.movement_accum += float(np.hypot(rel[0], rel[1]))
+            if self.movement_accum > c.keyframes.keyframe_meter_gap:
+                kfs.append((i, odo.pose.copy(), timestamps[i]))
+                self.movement_accum = 0.0
+        odo._coast = int(p[4 * n_scans])
+        if kfs:
+            gps_alts = None
+            if self._gps_table is not None and c.pgo.use_gps:
+                # per-keyframe association and the datum latch, in order
+                gps_alts = []
+                for _, _, ts in kfs:
+                    alt = self._associate_gps(ts)
+                    if alt is not None and self.gps_alt_offset is None:
+                        self.gps_alt_offset = alt
+                    gps_alts.append(alt)
+            self._process_keyframes(kfs, xys, valids, gps_alts)
+        return n_scans
+
+    def drain_chunks(self) -> None:
+        """Finish every in-flight chunk (output consumers call this)."""
+        while self._inflight:
+            self.finish_chunk()
 
     # -- keyframe path ------------------------------------------------------
 
@@ -313,6 +647,138 @@ class SlamEngine:
             setattr(self, name, new)
         self.graph.grow(c.pgo.max_nodes, c.pgo.max_loop_edges)
         self._make_solvers()
+
+    def _process_keyframes(self, kfs, xys: torch.Tensor, valids: torch.Tensor,
+                           gps_alts=None):
+        """A chunk's keyframes with as few device programs as the per-scan
+        semantics allow: runs of keyframes go to one segment each
+        (``_dispatch_segment``); a keyframe takes the per-keyframe path
+        (``_add_keyframe``) where the segment cannot reproduce the per-scan
+        result: a pending add_gps() fix, a deferred drain due before it, a
+        capacity flush or growth, an in-line fast refine.  The state is the
+        per-keyframe path's.
+
+        ``kfs``: [(scan index, odometry pose, timestamp)]; ``xys`` /
+        ``valids``: the chunk's (S, K, 2) / (S, K) features on the device;
+        ``gps_alts``: per keyframe an absolute altitude or None."""
+        idx, n = 0, len(kfs)
+        while idx < n:
+            # re-read: a per-keyframe step below may have grown the capacity
+            c = self.cfg
+            det_n = c.scancontext.detect_every_n_keyframes
+            i, odo_pose, ts = kfs[idx]
+            if self._pending_gps is not None and c.pgo.use_gps:
+                # the add_gps() fix goes with this keyframe; it wins over a
+                # table fix (a node carries at most one GPS factor)
+                self._add_keyframe(odo_pose, xys[i], valids[i], ts)
+                idx += 1
+                continue
+            has_gps_here = gps_alts is not None and gps_alts[idx] is not None
+            # grow the segment until the per-scan semantics need a host step
+            t_max = self._segment_bucket(n - idx)
+            seg = []   # (kfs index, do_detect)
+            pend = self._pending_count
+            k_sim = self.num_keyframes
+            loops_now = self.graph.num_loops
+            while idx + len(seg) < n and len(seg) < t_max:
+                if pend >= c.pgo.loop_commit_defer:
+                    break   # a drain must precede this keyframe
+                if (k_sim >= c.keyframes.max_keyframes - 1
+                        or loops_now + pend >= c.pgo.max_loop_edges - 2):
+                    break   # capacity flush or growth: per-keyframe path
+                do_det = bool(c.do_slam and (k_sim + 1) % det_n == 0
+                              and (k_sim + 1) > c.scancontext.num_exclude_recent)
+                if c.do_slam and (k_sim + 1) % det_n != 0 and loops_now > 0:
+                    break   # in-line fast refine: per-keyframe path
+                seg.append((idx + len(seg), do_det))
+                pend += do_det
+                k_sim += 1
+            # the segment writes rows [k0, k0 + bucket): near capacity, shrink
+            # it until its bucket fits
+            cap_rows = min(c.keyframes.max_keyframes, c.pgo.max_nodes)
+            while seg and self.num_keyframes + self._segment_bucket(len(seg)) > cap_rows:
+                seg.pop()
+            if not seg:
+                if self._pending_count >= c.pgo.loop_commit_defer:
+                    # drain where the per-scan path would, then retry
+                    self._flush_pending_loop()
+                    continue
+                if has_gps_here:
+                    # a table fix on a per-keyframe step: the per-scan attach
+                    # (the datum is latched already)
+                    self.add_gps(np.array([0.0, 0.0, gps_alts[idx]]))
+                self._add_keyframe(odo_pose, xys[i], valids[i], ts)
+                idx += 1
+                continue
+            self._dispatch_segment(seg, kfs, xys, valids, gps_alts)
+            idx += len(seg)
+
+    @staticmethod
+    def _segment_bucket(m: int) -> int:
+        """Segment slot counts: powers of two up to 16 (the JAX engine's
+        compile buckets), inactive tail slots masked."""
+        return min(16, 1 << (max(m, 1) - 1).bit_length())
+
+    def _get_segment(self, Tp: int, with_detect: bool):
+        """The segment program of ``Tp`` slots: with detection when a slot
+        detects, insert-only otherwise (its slots' results would go unread).
+        Nothing is compiled here, unlike the JAX engine."""
+        return functools.partial(_kf_segment_body, self.cfg, Tp, with_detect)
+
+    def _dispatch_segment(self, seg, kfs, xys, valids, gps_alts=None):
+        """One segment for the keyframes ``seg`` [(kfs index, do_detect)],
+        plus the host bookkeeping ``_add_keyframe`` does per keyframe."""
+        m = len(seg)
+        Tp = self._segment_bucket(m)
+        k0 = self.num_keyframes
+        sel = np.zeros(Tp, np.int64)
+        odo_arr = np.zeros((Tp, 3), np.float32)
+        prev_arr = np.zeros((Tp, 3), np.float32)
+        has = [False] * Tp
+        gps_arr = np.zeros(Tp, np.float32)
+        gps_has = np.zeros(Tp, bool)
+        prev_pose = self.last_kf_pose
+        ks_det, slots_det = [], []
+        for t, (j, do_det) in enumerate(seg):
+            i, odo_pose, ts = kfs[j]
+            sel[t] = i
+            odo_arr[t] = odo_pose
+            prev_arr[t] = prev_pose
+            has[t] = not (k0 + t == 0 or k0 + t == self.session_start)
+            if gps_alts is not None and gps_alts[j] is not None and k0 + t > 0:
+                # node 0 carries no GPS factor; the datum is latched
+                gps_arr[t] = np.float64(gps_alts[j]) - self.gps_alt_offset
+                gps_has[t] = True
+            if do_det:
+                ks_det.append(k0 + t)
+                slots_det.append(t)
+            prev_pose = odo_pose
+            self.kf_times.append(ts)
+            self.odom_poses.append(odo_pose.copy())
+        # the inactive tail: the last pose, an identity measurement
+        odo_arr[m:] = prev_pose
+        prev_arr[m:] = prev_pose
+        prog = self._get_segment(Tp, bool(ks_det))
+        self.dispatch_counts["kf_segment"] += 1
+
+        def dev(x):
+            return torch.as_tensor(x, device=self.device)
+
+        (self.clouds, self.clouds_valid, self.bank, self.ring_keys, self.graph.g, cands,
+         ress, pose_dev) = prog(
+            self.clouds, self.clouds_valid, self.bank, self.ring_keys, self.graph.g, k0, m,
+            dev(sel), xys, valids, dev(odo_arr), dev(prev_arr), has, dev(gps_arr),
+            dev(gps_has), self.session_start)
+        self.num_keyframes = k0 + m
+        self.graph.num_nodes = k0 + m
+        self.last_kf_pose = np.asarray(prev_pose, np.float64).copy()
+        if ks_det:
+            # packed now, right behind the segment on the stream
+            self._pending_loops.append((tuple(ks_det), tuple(slots_det),
+                                        _pack_decision(cands, ress)))
+            self._pending_count += len(ks_det)
+        self._cur_pose_dev = pose_dev
+        self._cur_pose = None
 
     def _add_keyframe(self, odo_pose: np.ndarray, xy: torch.Tensor,
                       valid: torch.Tensor, timestamp: float):
@@ -365,7 +831,7 @@ class SlamEngine:
         if c.do_slam:
             if do_detect:
                 # defer the decision fetch to a flush
-                self._pending_loops.append((k, _pack_decision(cand, res)))
+                self._pending_loops.append(((k,), None, _pack_decision(cand, res)))
                 self._pending_count += 1
             elif (k + 1) % c.scancontext.detect_every_n_keyframes == 0:
                 pass   # the exclude-recent window: no refine either
@@ -380,21 +846,31 @@ class SlamEngine:
 
     def _flush_pending_loop(self):
         """Drain the deferred decision queue in order: one fetch for every
-        queued decision, add every accepted loop factor, then ONE full
-        refine if any loop was added (a fast one otherwise)."""
+        queued decision not fetched yet (a finish_chunk may have brought
+        some), add every accepted loop factor, then ONE full refine if any
+        loop was added (a fast one otherwise)."""
         if not self._pending_loops:
             return
         pending, self._pending_loops = self._pending_loops, []
         self._pending_count = 0
-        self.dispatch_counts["decision_fetch"] += len(pending)
-        fetched = torch.stack([pk for _, pk in pending]).cpu().numpy()
+        dev = [pk for _, _, pk in pending if isinstance(pk, torch.Tensor)]
+        self.dispatch_counts["decision_fetch"] += len(dev)
+        if dev:
+            host = torch.cat(dev).cpu().numpy()
+            fetched = iter(np.split(host, np.cumsum([pk.numel() for pk in dev])[:-1]))
+        decisions = []   # (k, packed vector, slot)
+        for ks, slots, pk in pending:
+            p = next(fetched) if isinstance(pk, torch.Tensor) else pk
+            for k, s in zip(ks, slots or (0,)):
+                decisions.append((k, p, s))
         solved = False
-        for (k, _), p in zip(pending, fetched):
-            found, accepted, idx, dist, fitness = p[:5]
+        for k, p, s in decisions:
+            t = len(p) // 9
+            found, accepted, idx, dist, fitness = p[s:5 * t:t]
             if not (found > 0.5 and accepted > 0.5):
                 continue
             prev_idx = int(idx)
-            rel2 = np.asarray(p[5:8], np.float64)
+            rel2 = np.asarray(p[5 * t + 3 * s:5 * t + 3 * s + 3], np.float64)
             self.graph.add_loop(prev_idx, k, geo.se2_to_se3_np(rel2).astype(np.float32))
             self.loops.append(LoopEvent(prev_idx, k, float(dist), float(fitness), rel2))
             solved = True
@@ -415,8 +891,9 @@ class SlamEngine:
     # -- outputs ------------------------------------------------------------
 
     def current_pose(self) -> np.ndarray:
-        """Latest keyframe's optimized pose [x, y, theta], after draining the
-        deferred loop commits."""
+        """Latest keyframe's optimized pose [x, y, theta], after finishing the
+        in-flight chunks and draining the deferred loop commits."""
+        self.drain_chunks()
         if self.num_keyframes == 0:
             return np.zeros(3)
         self._flush_pending_loop()
@@ -435,9 +912,11 @@ class SlamEngine:
         return self._cur_pose.copy()
 
     def trajectory(self, drain: bool = True) -> np.ndarray:
-        """(N_kf, 4, 4) optimized keyframe poses; drain=False skips the
-        deferred-loop drain (the snapshot may lag the newest loops)."""
+        """(N_kf, 4, 4) optimized keyframe poses; drain=False skips finishing
+        the in-flight chunks and the deferred-loop drain (the snapshot may lag
+        the newest scans and loops)."""
         if drain:
+            self.drain_chunks()
             self._flush_pending_loop()
         return self.graph.poses()
 
@@ -449,6 +928,8 @@ class SlamEngine:
         c = self.cfg
         voxel = voxel if voxel is not None else c.map.map_voxel_size
         stride = stride if stride is not None else c.map.keyframe_stride
+        if drain:
+            self.drain_chunks()
         if self.num_keyframes == 0:
             return np.zeros((0, 2))
         if drain:

@@ -8,7 +8,9 @@ detectors.
 
 ``sc_shift_distance_matrix`` is the dispatch point of kernel K2: a CUDA
 tensor launches ``ops.kernels.sc_corr`` (no fallback), a CPU tensor runs the
-plain PyTorch version below.
+plain PyTorch version below.  ``sc_shift_distance_matrix_multi`` is that of
+K2-T, T queries in one launch, which the streaming segment's T-slot
+detectors (``detect_loop_multi``, ``detect_loop_ringkey_multi``) call.
 
 Not ported yet: ``ScanContextManager`` and
 ``detect_loop_between_sessions`` (the multi-session API).
@@ -31,15 +33,17 @@ def make_scancontext(xy: torch.Tensor, z: torch.Tensor, valid: torch.Tensor,
                      cfg: ScanContextConfig) -> torch.Tensor:
     """Feature cloud -> (num_ring, num_sector) descriptor via scatter-max.
 
-    xy: (K, 2) sensor-frame meters; z: (K,) heights (0 for radar features).
+    xy: (..., K, 2) sensor-frame meters; z: (..., K) heights (0 for radar
+    features); leading dims are independent clouds (the segment's T slots),
+    each giving the descriptor it would give alone.
     With cfg.max_desc_features > 0 only the first that many slots (the
     strongest features: clouds come in detector-power order) contribute."""
     r = torch.sqrt(torch.sum(xy * xy, dim=-1))
-    theta = torch.fmod(torch.atan2(xy[:, 1], xy[:, 0]), _TWO_PI)
+    theta = torch.fmod(torch.atan2(xy[..., 1], xy[..., 0]), _TWO_PI)
     theta = torch.where(theta < 0, theta + _TWO_PI, theta)   # jnp.mod's sign rule
 
     in_range = valid & (r < cfg.max_radius) & (r > 1e-3)
-    k = xy.shape[0]
+    k = xy.shape[-2]
     if 0 < cfg.max_desc_features < k:
         in_range = in_range & (torch.arange(k, device=xy.device) < cfg.max_desc_features)
     ring = torch.clamp((r / cfg.max_radius * cfg.num_ring).to(torch.int64),
@@ -47,12 +51,17 @@ def make_scancontext(xy: torch.Tensor, z: torch.Tensor, valid: torch.Tensor,
     sector = torch.clamp((theta / _TWO_PI * cfg.num_sector).to(torch.int64),
                          0, cfg.num_sector - 1)
     val = torch.where(in_range, z + cfg.lidar_height,
-                      torch.full_like(z, float("-inf")))
+                      torch.full_like(r, float("-inf")))
 
-    desc = torch.full((cfg.num_ring * cfg.num_sector,), float("-inf"),
-                      dtype=val.dtype, device=xy.device)
-    desc = desc.scatter_reduce(0, ring * cfg.num_sector + sector, val, "amax")
-    desc = desc.reshape(cfg.num_ring, cfg.num_sector)
+    lead = xy.shape[:-2]
+    cells = cfg.num_ring * cfg.num_sector
+    clouds = val.numel() // k if k else 0
+    # one scatter-max for every cloud: cloud b owns cells b * cells ...
+    cell = (ring * cfg.num_sector + sector).reshape(clouds, k)
+    cell = cell + (torch.arange(clouds, device=xy.device) * cells)[:, None]
+    desc = torch.full((clouds * cells,), float("-inf"), dtype=val.dtype, device=xy.device)
+    desc = desc.scatter_reduce(0, cell.reshape(-1), val.reshape(-1), "amax")
+    desc = desc.reshape(lead + (cfg.num_ring, cfg.num_sector))
     return torch.where(torch.isfinite(desc), desc, torch.zeros_like(desc))
 
 
@@ -109,12 +118,64 @@ def sc_shift_distance_matrix(query: torch.Tensor, bank: torch.Tensor) -> torch.T
     return sc_shift_distance_matrix_plain(query, bank)
 
 
+def sc_shift_distance_matrix_multi_plain(queries: torch.Tensor, bank: torch.Tensor
+                                         ) -> torch.Tensor:
+    """The plain PyTorch version of K2-T (any device): T queries (T, R, S)
+    against one bank (N, R, S) or per-slot banks (T, N, R, S) -> (T, N, S),
+    slot t being ``sc_shift_distance_matrix_plain(queries[t], bank[t])``."""
+    t, nr, ns = queries.shape
+    n = bank.shape[-3]
+    qn, qnz = _normalize_columns(queries)                           # (T, R, S), (T, S)
+    bn, bnz = _normalize_columns(bank)
+    col = _roll_index(ns, queries.device)
+    q_rolled = qn[:, :, col].permute(0, 2, 1, 3).reshape(t, ns, nr * ns)   # (T, Z, R*C)
+    C = bn.reshape(bank.shape[:-2] + (nr * ns,)) @ q_rolled.transpose(-1, -2)
+    counts = bnz.to(torch.float32) @ qnz[:, col].to(torch.float32).transpose(-1, -2)
+    dist = 1.0 - C / torch.clamp(counts, min=1.0)
+    return torch.where(counts > 0, dist, torch.ones_like(dist)).reshape(t, n, ns)
+
+
+def sc_shift_distance_matrix_multi(queries: torch.Tensor, bank: torch.Tensor
+                                   ) -> torch.Tensor:
+    """``sc_shift_distance_matrix`` for T query slots at once: queries
+    (T, R, S) against one bank (N, R, S) or per-slot banks (T, N, R, S) ->
+    (T, N, S).  A CUDA tensor runs kernel K2-T (one launch for every slot),
+    a CPU tensor the plain version."""
+    if queries.device.type == "cuda":
+        return sc_corr.sc_shift_distances_multi_cuda(queries.contiguous(), bank.contiguous())
+    if queries.device.type != "cpu":
+        raise ValueError(f"sc_shift_distance_matrix_multi: unsupported device "
+                         f"{queries.device}")
+    return sc_shift_distance_matrix_multi_plain(queries, bank)
+
+
+def _best_shift(dist: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Best distance over the shifts (last axis) and its argmin shift."""
+    # clamp f32 rounding: a perfect self-match can land slightly below 0
+    return torch.clamp(torch.min(dist, dim=-1).values, min=0.0), torch.argmin(dist, dim=-1)
+
+
 def sc_distance_all_shifts(query: torch.Tensor, bank: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Best distance over all shifts: (dist (N,), argmin shift (N,))."""
-    dist = sc_shift_distance_matrix(query, bank)
-    # clamp f32 rounding: a perfect self-match can land slightly below 0
-    return torch.clamp(torch.min(dist, dim=-1).values, min=0.0), torch.argmin(dist, dim=-1)
+    return _best_shift(sc_shift_distance_matrix(query, bank))
+
+
+def _ratio_window(dist: torch.Tensor, query: torch.Tensor, bank: torch.Tensor,
+                  cfg: ScanContextConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The best of ``dist`` (..., N, S) inside the sector-key-aligned window
+    of each row; query (..., R, S), bank (..., N, R, S)."""
+    ns = query.shape[-1]
+    vq = sector_key(query)                                          # (..., S)
+    vb = sector_key(bank)                                           # (..., N, S)
+    col = _roll_index(ns, query.device)
+    corr = vb @ vq[..., col].transpose(-1, -2)                      # (..., N, Z)
+    align = torch.argmin(torch.sum(vb * vb, dim=-1)[..., None] - 2.0 * corr, dim=-1)
+    radius = max(1, int(round(0.5 * cfg.search_ratio * ns)))
+    shifts = torch.arange(ns, device=query.device)
+    circ = torch.abs((shifts - align[..., None] + ns // 2) % ns - ns // 2)
+    dist = torch.where(circ <= radius, dist, torch.full_like(dist, float("inf")))
+    return _best_shift(dist)
 
 
 def sc_distance_ratio_shifts(query: torch.Tensor, bank: torch.Tensor,
@@ -122,19 +183,7 @@ def sc_distance_ratio_shifts(query: torch.Tensor, bank: torch.Tensor,
     """Best distance over the reference's restricted shift search: align by
     sector key, then search only ± round(0.5 * search_ratio * S) shifts
     around that alignment."""
-    ns = query.shape[1]
-    dist = sc_shift_distance_matrix(query, bank)                    # (N, S)
-    vq = sector_key(query)
-    vb = sector_key(bank)                                           # (N, S)
-    col = _roll_index(ns, query.device)
-    corr = vb @ vq[col].T                                           # (N, Z)
-    align = torch.argmin(torch.sum(vb * vb, dim=-1)[:, None] - 2.0 * corr, dim=-1)
-    radius = max(1, int(round(0.5 * cfg.search_ratio * ns)))
-    shifts = torch.arange(ns, device=query.device)
-    circ = torch.abs((shifts[None, :] - align[:, None] + ns // 2) % ns - ns // 2)
-    dist = torch.where(circ <= radius, dist, torch.full_like(dist, float("inf")))
-    best_shift = torch.argmin(dist, dim=-1)
-    return torch.clamp(torch.min(dist, dim=-1).values, min=0.0), best_shift
+    return _ratio_window(sc_shift_distance_matrix(query, bank), query, bank, cfg)
 
 
 def shift_to_yaw(shift: torch.Tensor, cfg: ScanContextConfig) -> torch.Tensor:
@@ -145,10 +194,10 @@ def shift_to_yaw(shift: torch.Tensor, cfg: ScanContextConfig) -> torch.Tensor:
 
 
 def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``jax.lax.top_k``: the k largest, equal values lowest index first
-    (``torch.topk`` promises no tie order)."""
+    """``jax.lax.top_k`` along the last axis: the k largest, equal values
+    lowest index first (``torch.topk`` promises no tie order)."""
     vals, idx = torch.sort(x, descending=True, stable=True)
-    return vals[:k], idx[:k]
+    return vals[..., :k], idx[..., :k]
 
 
 def ring_key_candidates(query_key: torch.Tensor, bank_keys: torch.Tensor, k: int
@@ -238,3 +287,57 @@ def detect_loop_ringkey(query_desc: torch.Tensor, bank_desc: torch.Tensor,
     best, best_dist, best_shift = ringkey_two_stage_best(
         query_desc, bank_desc, bank_ring_keys, searchable, cfg.num_candidates, cfg)
     return _candidate(best, best_dist, best_shift, cfg)
+
+
+def detect_loop_multi(queries: torch.Tensor, bank_desc: torch.Tensor, k0: int, m: int,
+                      cfg: ScanContextConfig) -> LoopCandidate:
+    """``detect_loop`` for the T keyframes k0 .. k0 + T - 1 of a segment, all
+    against the final bank: slot t sees num_valid = k0 + t + 1 (the
+    ``jax.vmap(detect_one)`` of the JAX segment).  ``m`` of the T slots are
+    active.  One K2-T call scores the prefix that the last active slot may
+    search, max(k0 + m - num_exclude_recent, 1) rows, for every slot; row n
+    of slot t is then masked at n >= k0 + t + 1 - num_exclude_recent, so
+    each active slot's candidate is the one ``detect_loop`` gives it alone.
+    Returns a LoopCandidate of (T,) leaves."""
+    t = queries.shape[0]
+    dev = bank_desc.device
+    n = max(k0 + m - cfg.num_exclude_recent, 1)
+    dist, shift = _best_shift(sc_shift_distance_matrix_multi(queries, bank_desc[:n]))
+    bound = k0 + 1 - cfg.num_exclude_recent + torch.arange(t, device=dev)
+    searchable = torch.arange(n, device=dev)[None, :] < bound[:, None]
+    dist = torch.where(searchable, dist, torch.full_like(dist, float("inf")))
+    best = torch.argmin(dist, dim=-1)
+    pick = best[:, None]
+    return _candidate(best, torch.gather(dist, 1, pick)[:, 0],
+                      torch.gather(shift, 1, pick)[:, 0], cfg)
+
+
+def detect_loop_ringkey_multi(queries: torch.Tensor, bank_desc: torch.Tensor,
+                              bank_ring_keys: torch.Tensor, k0: int,
+                              cfg: ScanContextConfig) -> LoopCandidate:
+    """``detect_loop_ringkey`` for the T keyframes k0 .. k0 + T - 1 of a
+    segment against the final bank (slot t sees num_valid = k0 + t + 1):
+    each slot's ring-key prefilter gathers its own ``num_candidates`` rows,
+    so the shift distances are one K2-T call on a (T, k, R, S) bank, and the
+    ratio window (``search_ratio``) is taken per slot.  Returns a
+    LoopCandidate of (T,) leaves."""
+    t = queries.shape[0]
+    dev = bank_desc.device
+    bounds = torch.as_tensor([ringkey_searchable_bound(k0 + s + 1, cfg) for s in range(t)],
+                             device=dev)
+    searchable = torch.arange(bank_desc.shape[0], device=dev)[None, :] < bounds[:, None]
+    qkey = ring_key(queries)                                        # (T, R)
+    d2 = torch.sum((bank_ring_keys[None] - qkey[:, None, :]) ** 2, dim=-1)   # (T, N)
+    d2 = torch.where(searchable, d2, torch.full_like(d2, float("inf")))
+    _, cand = top_k(-d2, cfg.num_candidates)                        # (T, k)
+    cand_desc = bank_desc[cand]                                     # (T, k, R, S)
+    dist = sc_shift_distance_matrix_multi(queries, cand_desc)
+    if cfg.search_ratio > 0:
+        dist, shift = _ratio_window(dist, queries, cand_desc, cfg)
+    else:
+        dist, shift = _best_shift(dist)
+    dist = torch.where(torch.isfinite(torch.gather(d2, 1, cand)), dist,
+                       torch.full_like(dist, float("inf")))
+    j = torch.argmin(dist, dim=-1)[:, None]
+    return _candidate(torch.gather(cand, 1, j)[:, 0], torch.gather(dist, 1, j)[:, 0],
+                      torch.gather(shift, 1, j)[:, 0], cfg)

@@ -17,25 +17,26 @@ _SENTINEL = 1 << 30
 
 def voxel_dedup_mask(pts: torch.Tensor, valid: torch.Tensor,
                      voxel: float) -> torch.Tensor:
-    """(N,) bool mask keeping one valid point per voxel cell.
+    """(..., N) bool mask keeping one valid point per voxel cell.
 
-    pts: (N, 2) float32; valid: (N,) bool; voxel: cell edge in meters
-    (<= 0 disables: returns ``valid`` unchanged).  Within a cell the valid
-    point with the lowest index wins."""
+    pts: (..., N, 2) float32; valid: (..., N) bool; voxel: cell edge in
+    meters (<= 0 disables: returns ``valid`` unchanged).  Within a cell the
+    valid point with the lowest index wins.  Leading dims are independent
+    clouds (the segment's T slots, ``jax.vmap`` in the JAX code): each is
+    sorted along its last axis and gets the mask it would get alone."""
     if voxel <= 0:
         return valid
-    cx = torch.floor(pts[:, 0] / voxel).to(torch.int32)
-    cy = torch.floor(pts[:, 1] / voxel).to(torch.int32)
+    cx = torch.floor(pts[..., 0] / voxel).to(torch.int32)
+    cy = torch.floor(pts[..., 1] / voxel).to(torch.int32)
     sentinel = torch.full_like(cx, _SENTINEL)
     cx = torch.where(valid, cx, sentinel).to(torch.int64)
     cy = torch.where(valid, cy, sentinel).to(torch.int64)
     # lexicographic (cx, cy) as one key; the stable sort keeps index order
     # within a cell
     key = cx * (1 << 32) + (cy + (1 << 31))
-    skey, order = torch.sort(key, stable=True)
+    skey, order = torch.sort(key, dim=-1, stable=True)
     first = torch.ones_like(valid)
-    first[1:] = skey[1:] != skey[:-1]
+    first[..., 1:] = skey[..., 1:] != skey[..., :-1]
     keep_sorted = first & (torch.div(skey, 1 << 32, rounding_mode="floor") != _SENTINEL)
-    keep = torch.zeros_like(valid)
-    keep[order] = keep_sorted
+    keep = torch.zeros_like(valid).scatter_(-1, order, keep_sorted)
     return keep & valid

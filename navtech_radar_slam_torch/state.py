@@ -22,7 +22,9 @@ A state without ``"odometry"`` (a JAX checkpoint) resumes as the JAX engine
 does: the first scan after the load re-seeds the odometry.  Reading and
 writing the ``.npz`` file is not ported yet.
 
-The configuration needs no conversion: ``SlamConfig`` is shared as is.
+The configuration needs no conversion: the port's ``config.SlamConfig``
+has the JAX package's fields and defaults, and ``configs/*.json`` load alike
+in both.
 """
 
 from __future__ import annotations
@@ -87,8 +89,9 @@ def load_odometry_state(odo: RadarOdometry, d: Dict) -> None:
 
 def slam_state_to_numpy(eng: "SlamEngine") -> Dict:
     """The engine state as numpy, in the JAX checkpoint's key names plus the
-    odometry carry.  Commits the deferred loop decisions first, as the JAX
-    checkpoint does."""
+    odometry carry.  Finishes the in-flight chunks and commits the deferred
+    loop decisions first, as the JAX checkpoint does."""
+    eng.drain_chunks()
     eng._flush_pending_loop()
     g = eng.graph.g
     d = {name: getattr(eng, name).cpu().numpy()
@@ -168,5 +171,8 @@ def load_slam_state(eng: "SlamEngine", d: Dict) -> None:
     load_odometry_state(eng.odometry, odo)
     eng._pending_loops = []
     eng._pending_count = 0
+    eng._inflight.clear()
+    eng._twist_dev = None
+    eng._coast_dev = None
     eng._cur_pose = None
     eng._cur_pose_dev = None

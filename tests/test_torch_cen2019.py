@@ -20,7 +20,9 @@ from navtech_radar_slam_tpu.ops.pallas.cen_peaks import cen2019_scores_pallas
 from navtech_radar_slam_torch.models.odometry import decode_power
 from navtech_radar_slam_torch.ops import cen2019 as tcen
 from navtech_radar_slam_torch.ops.kernels import cen_peaks
-from torch_parity_util import assert_score_maps_close, np_, peak_set, t
+from torch_parity_util import (  # noqa: F401 (one_torch_thread: fixture)
+    assert_score_maps_close, np_, one_torch_thread, peak_set, t,
+)
 
 CFG = SlamConfig()
 

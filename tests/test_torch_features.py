@@ -8,7 +8,7 @@ import pytest
 from navtech_radar_slam_tpu.config import FeatureConfig
 from navtech_radar_slam_tpu.ops import features as jfeat
 from navtech_radar_slam_torch.ops import features as tfeat
-from torch_parity_util import np_, t, tuple_np
+from torch_parity_util import np_, one_torch_thread, t, tuple_np  # noqa: F401 (fixture)
 
 
 def _points(seed, K):

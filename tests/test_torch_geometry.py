@@ -13,7 +13,7 @@ import torch
 
 from navtech_radar_slam_tpu.utils import geometry as jgeo
 from navtech_radar_slam_torch.utils import geometry as tgeo
-from torch_parity_util import np_, t
+from torch_parity_util import np_, one_torch_thread, t  # noqa: F401 (fixture)
 
 ATOL = 1e-5
 

@@ -21,7 +21,7 @@ from navtech_radar_slam_tpu.ops.pallas import nearest_neighbors_pallas
 from navtech_radar_slam_tpu.utils import geometry as jgeo
 from navtech_radar_slam_torch.ops import icp as ticp
 from navtech_radar_slam_torch.ops.kernels import nn_dist
-from torch_parity_util import cuda_device, np_, t  # noqa: F401 (fixture)
+from torch_parity_util import cuda_device, np_, one_torch_thread, t  # noqa: F401 (fixtures)
 
 CFG = dataclasses.replace(IcpConfig(), max_iters=50)
 

@@ -16,8 +16,9 @@ from navtech_radar_slam_tpu.utils import geometry as jgeo
 from navtech_radar_slam_torch import entry, state
 from navtech_radar_slam_torch.models import odometry as todo
 from navtech_radar_slam_torch.utils import geometry as tgeo
-from torch_parity_util import (
-    SCAN_FIELDS, jax_odometry_carry, np_, peak_set, sim_scans, t, tiny_cfg, tuple_np,
+from torch_parity_util import (  # noqa: F401 (one_torch_thread: fixture)
+    SCAN_FIELDS, jax_odometry_carry, np_, one_torch_thread, peak_set, sim_scans, t, tiny_cfg,
+    tuple_np,
 )
 
 CFG = tiny_cfg()

@@ -22,7 +22,7 @@ from navtech_radar_slam_tpu.config import PgoConfig
 from navtech_radar_slam_tpu.models import posegraph as jpg
 from navtech_radar_slam_torch.models import posegraph as tpg
 from navtech_radar_slam_torch.utils.geometry import se2_to_se3_np
-from torch_parity_util import np_, t
+from torch_parity_util import np_, one_torch_thread, t  # noqa: F401 (fixture)
 
 CFG = dataclasses.replace(
     PgoConfig(), max_nodes=64, max_loop_edges=16, gn_iters=10, cg_iters=100,

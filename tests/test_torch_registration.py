@@ -12,7 +12,7 @@ from navtech_radar_slam_tpu.ops import features as jfeat
 from navtech_radar_slam_tpu.ops import registration as jreg
 from navtech_radar_slam_torch.ops import features as tfeat
 from navtech_radar_slam_torch.ops import registration as treg
-from torch_parity_util import np_, t
+from torch_parity_util import np_, one_torch_thread, t  # noqa: F401 (fixture)
 
 CFG = RegistrationConfig()
 

@@ -18,7 +18,7 @@ from navtech_radar_slam_tpu.ops import scancontext as jsc
 from navtech_radar_slam_tpu.ops.pallas import sc_shift_distances_pallas
 from navtech_radar_slam_torch.ops import scancontext as tsc
 from navtech_radar_slam_torch.ops.kernels import sc_corr
-from torch_parity_util import cuda_device, np_, t  # noqa: F401 (fixture)
+from torch_parity_util import cuda_device, np_, one_torch_thread, t  # noqa: F401 (fixtures)
 
 CFG = ScanContextConfig()
 SC_ATOL = 2e-5

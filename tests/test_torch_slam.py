@@ -3,6 +3,9 @@
 a state carried across with ``state.load_slam_state``, the state round
 trip and resume, and an end-to-end run of both engines.
 
+The GPS datum, no-SLAM and ring-key modes run per scan through both
+engines too (``test_engines_agree_in_mode``).
+
 Tolerances: ``_build_submap`` keeps the identical mask and choice of
 points, with coordinates within 1e-5 (sin/cos rounding); detection
 gives the same index, flag and yaw; ``_verify_candidate`` gives the same
@@ -31,7 +34,7 @@ from navtech_radar_slam_torch.models.odometry import RadarOdometry
 from navtech_radar_slam_torch.ops import scancontext as tsc
 from navtech_radar_slam_torch.utils import geometry as tgeo
 from navtech_radar_slam_torch.utils.geometry import se2_between_np
-from torch_parity_util import np_, t, tiny_cfg
+from torch_parity_util import np_, one_torch_thread, t, tiny_cfg  # noqa: F401 (fixture)
 
 N_SCANS = 25
 
@@ -89,6 +92,71 @@ def test_engines_agree_end_to_end(runs):
     m_j, m_t = jeng.aggregate_map(), teng.aggregate_map()
     assert len(m_t) > 0 and np.isfinite(m_t).all()
     assert abs(len(m_t) - len(m_j)) <= 0.05 * len(m_j)
+
+
+def _mode_cfg(mode: str) -> SlamConfig:
+    if mode == "gps":
+        # a tight altitude sigma and a loose odometry chain, so the pull of
+        # the altitude factors shows in a 4-node graph (tests/test_slam.py:327)
+        return dataclasses.replace(CFG, pgo=dataclasses.replace(
+            CFG.pgo, use_gps=True, gps_sigma_alt=0.5, odom_sigma_trans=1.0))
+    if mode == "no_slam":
+        return dataclasses.replace(CFG, do_slam=False)
+    return dataclasses.replace(CFG, scancontext=dataclasses.replace(
+        CFG.scancontext, search_mode="ringkey"))
+
+
+#: scans per mode, and the absolute GPS altitudes of the "gps" mode
+MODE_SCANS = {"gps": 4, "no_slam": 8, "ringkey": N_SCANS}
+GPS_ALTS = [70.0, 72.0, 72.0, 72.0]
+
+
+@pytest.mark.parametrize("mode", ["gps", "no_slam", "ringkey"])
+def test_engines_agree_in_mode(mode):
+    """Both engines per scan in the modes of tests/test_slam.py that the
+    full-mode fixture does not run: the GPS datum through the engine
+    (:327), no-SLAM mode (:75) and the ring-key search (:96).  The same
+    keyframes and ``dispatch_counts``, trajectories within 0.1 m, and the
+    mode's own outcome in both."""
+    cfg = _mode_cfg(mode)
+    n = MODE_SCANS[mode]
+    sim = RadarSimulator(cfg.radar)
+    gt = sim.circuit_trajectory(n + 2, radius=5.0, speed=6.0)
+    jeng = jslam.SlamEngine(cfg)
+    teng = tslam.SlamEngine(cfg, device="cpu")
+    for i in range(n):
+        scan = sim.render(gt[i], noise_seed=i)
+        for eng in (jeng, teng):
+            if mode == "gps":
+                eng.add_gps(np.array([0.0, 0.0, GPS_ALTS[i]]))
+            eng.process(scan, timestamp=i * 0.25)
+    traj_j, traj_t = jeng.trajectory(), teng.trajectory()
+    assert teng.num_keyframes == jeng.num_keyframes >= n - 1
+    assert dict(teng.dispatch_counts) == dict(jeng.dispatch_counts)
+    np.testing.assert_allclose(traj_t, traj_j, rtol=0, atol=0.1)
+    loops_j = {(e.prev_idx, e.curr_idx) for e in jeng.loops}
+    loops_t = {(e.prev_idx, e.curr_idx) for e in teng.loops}
+    if mode == "no_slam":
+        assert not loops_j and not loops_t
+    elif mode == "ringkey":
+        assert loops_j and loops_t
+        assert len(loops_j & loops_t) >= 0.5 * max(len(loops_j), len(loops_t))
+    else:
+        # the first fix latches the datum; node 0 carries no factor; the
+        # rows hold the altitude above the datum and the last estimate's xy
+        k = teng.num_keyframes
+        assert teng.gps_alt_offset == jeng.gps_alt_offset == 70.0
+        gv_t, gv_j = np_(teng.graph.g.gps_valid[:k]), np_(jeng.graph.g.gps_valid[:k])
+        np.testing.assert_array_equal(gv_t, gv_j)
+        assert not gv_t[0] and gv_t[1:].all()
+        gm_t, gm_j = np_(teng.graph.g.gps_meas[:k]), np_(jeng.graph.g.gps_meas[:k])
+        np.testing.assert_allclose(gm_t[1:, 2], np.asarray(GPS_ALTS[1:k]) - 70.0, atol=1e-6)
+        np.testing.assert_allclose(gm_t, gm_j, rtol=0, atol=1e-4)
+        jeng.graph.optimize()
+        teng.graph.optimize()
+        z_t = float(teng.graph.g.poses[k - 1, 2, 3])
+        assert z_t > 0.3
+        assert z_t == pytest.approx(float(jeng.graph.g.poses[k - 1, 2, 3]), abs=1e-3)
 
 
 @pytest.mark.parametrize("seed,voxel", [(0, 0.4), (1, 1.0), (2, 0.0)])

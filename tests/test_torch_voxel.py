@@ -8,7 +8,7 @@ import pytest
 
 from navtech_radar_slam_tpu.ops.voxel import voxel_dedup_mask as jmask
 from navtech_radar_slam_torch.ops.voxel import voxel_dedup_mask as tmask
-from torch_parity_util import np_, t
+from torch_parity_util import np_, one_torch_thread, t  # noqa: F401 (fixture)
 
 
 @pytest.mark.parametrize("voxel,scale,n", [(0.4, 50.0, 3000), (1.0, 150.0, 2000),

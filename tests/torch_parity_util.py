@@ -104,3 +104,17 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one CPU thread for a module's tests, restored after.  The
+    suite runs in several worker processes at once, and torch's default of
+    one OpenMP thread per core in each of them oversubscribes the cores
+    (idle OpenMP threads spin), which slows every worker many times over;
+    the CPU tests' tensors are small, so one thread costs them little.
+    Import it into a test module to apply it there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
