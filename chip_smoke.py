@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's odometry and full-SLAM paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's odometry, batched-odometry and full-SLAM paths
+once on one NVIDIA GPU.
 
     python3 chip_smoke.py            (from the repository root)
 
@@ -8,9 +9,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
   1. the card: CUDA must be available; prints nvidia-smi's name and power
      limit of the card;
   2. the build: nvcc builds kernels K1, K2 and K3 (navtech_radar_slam_torch/
-     csrc/{cen_peaks,sc_corr,nn_dist}.cu; K2-T and K3-T are the T-slot entry
-     points of the last two) from this checkout, all three at once, into
-     navtech_radar_slam_torch/_build/;
+     csrc/{cen_peaks,sc_corr,nn_dist}.cu; K1 x B is an entry point of the
+     first, K2-T and K3-T the T-slot entry points of the last two) from this
+     checkout, all three at once, into navtech_radar_slam_torch/_build/;
   3. K1 against its plain PyTorch twin on the card, on a full-size simulated
      scan as float input and through the 4-bit wire format: the same peak
      positions and values, exactly;
@@ -50,29 +51,51 @@ Phases, in order; any failure ends the run with a non-zero exit:
      ICP iteration plus the final fitness, K2 and K3 only for the keyframes
      sent down the per-keyframe path, the same loop, solve and ATE checks,
      and prints its loops beside the per-scan run's;
- 12. times: K2 (on the all-live bank), K3, K2-T and K3-T (16 slots) against
-     their plain versions, the per-scan SlamEngine.process time split into
-     odometry, keyframe step and refine, and the streamed run's time per
-     scan beside it;
- 13. for each kernel, the device time per launch (CUDA events around 200
+ 12. K1 x B (one launch for B scans) against its plain version, exactly
+     (the same peak positions and values in every scan): B = 1, bit-equal
+     to K1; B = 3; B = 64 full-size scans (the 60 of the SLAM paths and 4
+     of the odometry path), one of them through the 4-bit wire format and
+     one all zero (no peak), each scan bit-equal to K1 on that scan;
+ 13. the batched odometry path: make_batched_odometry_step at the default
+     config, B = 64 streams over 8 steps, stream b stepping through scans
+     o_b .. o_b + 8 of the odometry path's 24 (o_b = b % 16), seeded by the
+     batched extraction, every counter reset just before the seed and read
+     after the 8th step (K1 x B once per step plus once for the seed, K1
+     never); checks each stream's ok (at least 7 of 8) and composed pose
+     against the ground truth (ATE < 5 % of its path), and each stream
+     against RadarOdometry run on that stream alone (the same ok, rel_pose
+     within 1e-3 m / 1e-4 rad), and, on the first step's matches, each
+     stream's spectral scores under torch.func.vmap bit-equal to that
+     stream's alone; then two more timed windows, and prints the
+     aggregate frames/s and the median, min and max step ms;
+ 14. times: K2 (on the all-live bank), K3, K2-T, K3-T (16 slots) and K1 x B
+     (B = 64) against their plain versions, the per-scan SlamEngine.process
+     time split into odometry, keyframe step and refine, and the streamed
+     run's time per scan beside it;
+ 15. for each kernel, the device time per launch (CUDA events around 200
      back-to-back launches, the host queued ahead of the card behind a
      sleep kernel), its bound (the larger of the bytes it must move over
      the H100's 3.35 TB/s and its fp32 operations over 67 TFLOP/s, from
      this run's shapes and data), the share of the bound, the launches on
-     each path, and the device kernels of one call (torch.profiler): one.
+     each path, and the device work of one call, read from a CUDA graph
+     capture of the call: exactly one kernel node and nothing else.
      K2's report is at the 4096-row all-live bank; lines before it give
      K2's device ms and bound at the SLAM run's largest prefix (30 rows)
      and at the 400-live bank, and K2-T's at 16 x 400 rows.  K2-T's report
-     is at 16 queries x the 30-row prefix, K3-T's at 16 x (1024, 8192).
+     is at 16 queries x the 30-row prefix, K3-T's at 16 x (1024, 8192),
+     K1 x B's at the 64 scans of phase 12.  Last, one RadarOdometry step
+     and one batched step under torch.profiler: wall ms, device kernels,
+     and the device's busy ms and share.
 
 The line before the last is the kernel report
 {"kernels": [{"name", "route", "source", "replaces", "launches",
-"launches_odometry", "launches_slam", "launches_streaming", "max_abs_err",
-"ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}]}
-("launches": the per-scan full-SLAM path's for K1, K2 and K3, the streamed
-path's for K2-T and K3-T; "ms": one wrapper call fenced by CUDA events,
-median; "library_ms": null, since no single PyTorch call computes any of
-the five functions), the last line
+"launches_odometry", "launches_slam", "launches_streaming",
+"launches_batched", "max_abs_err", "ms", "device_ms", "plain_ms",
+"bound_ms", "bound_by", "library_ms"}]} ("launches": the per-scan
+full-SLAM path's for K1, K2 and K3, the streamed path's for K2-T and K3-T,
+the batched odometry path's for K1 x B; "ms": one wrapper call fenced by
+CUDA events, median; "library_ms": null, since no single PyTorch call
+computes any of the six functions), the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Scans come from the port's numpy simulator (navtech_radar_slam_torch.data);
 nothing here or in the port imports jax or the JAX package.
@@ -80,6 +103,8 @@ nothing here or in the port imports jax or the JAX package.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import json
 import subprocess
 import sys
@@ -92,10 +117,12 @@ import torch
 from navtech_radar_slam_torch.config import SlamConfig
 from navtech_radar_slam_torch.data import RadarSimulator, pack4
 from navtech_radar_slam_torch.models import slam as slam_mod
-from navtech_radar_slam_torch.models.odometry import RadarOdometry, decode_power
-from navtech_radar_slam_torch.ops import cen2019, icp, scancontext
+from navtech_radar_slam_torch.models.odometry import (
+    RadarOdometry, decode_power, default_azimuths, extract_scan_features_batched,
+    make_batched_odometry_step, match_feature_pair)
+from navtech_radar_slam_torch.ops import cen2019, icp, registration, scancontext
 from navtech_radar_slam_torch.ops.kernels import cen_peaks, nn_dist, sc_corr
-from navtech_radar_slam_torch.utils.geometry import se2_between_np
+from navtech_radar_slam_torch.utils.geometry import se2_between_np, se2_mul_np
 
 N_SCANS = 24
 N_SLAM_SCANS = 60
@@ -107,8 +134,13 @@ KERNELS = (cen_peaks, sc_corr, nn_dist)
 COUNTERS = (("cen_peaks", cen_peaks, "launch_count"), ("sc_corr", sc_corr, "launch_count"),
             ("nn_dist", nn_dist, "launch_count"),
             ("sc_corr_multi", sc_corr, "multi_launch_count"),
-            ("nn_dist_multi", nn_dist, "multi_launch_count"))
+            ("nn_dist_multi", nn_dist, "multi_launch_count"),
+            ("cen_peaks_batched", cen_peaks, "batched_launch_count"))
 CHUNK = 16           # scans per chunk of the streamed path
+STREAMS = 64         # streams of the batched odometry path (bench.py's B)
+STREAM_STEPS = 8     # steps of each batched window
+STREAM_OFFSETS = 16  # stream b starts at scan b % STREAM_OFFSETS
+BATCH_WINDOWS = 3    # timed windows of the batched path
 SLOTS = 16           # query slots of the K2-T and K3-T checks and timings
 DEVICE_LAUNCHES = 200  # back-to-back launches per device-time reading
 # NVIDIA H100 SXM data-sheet peaks (at 700 W): HBM3 bytes/s, fp32 FLOP/s
@@ -336,16 +368,60 @@ def bound(n_bytes: float, n_ops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernels_per_call(launch) -> list:
-    """Device kernels of one wrapper call, (name, count), from torch.profiler;
-    empty when the profiler saw no device events."""
+def kernels_per_call(name: str, launch) -> tuple:
+    """The device work one wrapper call puts on its stream, read from a CUDA
+    graph capture of the call: (kernel nodes, other nodes).  The capture
+    records every kernel, copy and memset the call enqueues, whatever a
+    tracer sees (torch.profiler saw no device event in some one-call
+    profiles late in this script on an H100).  Raises when the capture is
+    empty or a CUDA query fails."""
+    libcuda = ctypes.CDLL("libcuda.so.1")
+
+    def check(err: int) -> None:
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA error {err} reading the captured graph")
+
     launch()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
         launch()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(libcuda.cuGraphGetNodes(raw, None, ctypes.byref(n)))
+    nodes = (ctypes.c_void_p * n.value)()
+    check(libcuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)))
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)))
+        kinds.append(kind.value)
+    graph.reset()
+    torch.cuda.synchronize()
+    if not kinds:
+        raise AssertionError(f"{name}: one call put no work on the device")
+    n_kernels = kinds.count(0)   # CU_GRAPH_NODE_TYPE_KERNEL
+    return n_kernels, len(kinds) - n_kernels
+
+
+def device_busy(fn) -> tuple:
+    """One call of ``fn`` under torch.profiler (device activity only):
+    (wall ms, device kernel ms, device kernels); the kernel ms is None when
+    the profiler saw no device events.  The kernels run on one stream, so
+    their summed time is the time the device was busy."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-    return [(e.key, e.count) for e in prof.key_averages()
-            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    if not events:
+        return 1e3 * wall, None, 0
+    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+             for e in events)
+    return 1e3 * wall, 1e-3 * us, sum(e.count for e in events)
 
 
 def timed(bucket: dict, name: str, fn):
@@ -597,6 +673,162 @@ def streaming_path(cfg: SlamConfig, gt: np.ndarray, scans: list, dev, name_power
     return launches, loops, med, whole
 
 
+def check_k1b(label: str, x: torch.Tensor, cfg: SlamConfig) -> float:
+    """K1 x B against its plain version, exactly: the same peak positions
+    and values in every scan, and every scan bit-equal to K1 on that scan
+    alone.  Returns the max abs error at common peaks (0)."""
+    got = cen_peaks.cen2019_scores_batched_cuda(x, cfg.features, cfg.radar)
+    want = cen2019.cen2019_scores_batched(x, cfg.features, cfg.radar)
+    one = [cen_peaks.cen2019_scores_cuda(s.contiguous(), cfg.features, cfg.radar) for s in x]
+    torch.cuda.synchronize()
+    fg, fw = torch.isfinite(got), torch.isfinite(want)
+    per_scan = fw.flatten(1).sum(1).tolist()
+    n_diff = int((fg ^ fw).sum())
+    both = fg & fw
+    err = float((got[both] - want[both]).abs().max())
+    n_k1 = sum(not torch.equal(g, o) for g, o in zip(got, one))
+    print(f"  {label}, batch {tuple(x.shape)}: peaks {sum(per_scan)} (per scan {min(per_scan)}"
+          f" to {max(per_scan)}), positions differing {n_diff}, max abs err {err:.3g}, scans "
+          f"not bit-equal to K1 {n_k1}")
+    if sum(per_scan) == 0 or n_diff or err or n_k1:
+        raise AssertionError(f"K1 x B differs ({label}): {n_diff} peak positions, values by "
+                             f"{err}, {n_k1} scans from K1")
+    return err
+
+
+def check_spectral_invariance(prev, curr, cfg: SlamConfig) -> None:
+    """The batched path's spectral scores on the card: for every stream,
+    ``spectral_inlier_scores`` under torch.func.vmap over the B streams'
+    matches equals the scores of that stream's matches alone, bit for bit
+    (the stable top-k of the scores picks the TIMs, so a last-bit
+    difference between near-equal scores changes the registration)."""
+    matches = torch.func.vmap(functools.partial(match_feature_pair, cfg=cfg))(prev, curr)
+    scores = functools.partial(registration.spectral_inlier_scores, cfg=cfg.registration)
+    got = torch.func.vmap(scores)(matches)
+    differ = [b for b in range(got.shape[0]) if not torch.equal(
+        got[b], scores(type(matches)(*(None if f is None else f[b] for f in matches))))]
+    n_valid = matches.valid.sum(1)
+    print(f"  spectral scores under vmap at B = {got.shape[0]} (matches per stream "
+          f"{int(n_valid.min())} to {int(n_valid.max())}): streams not bit-equal to the "
+          f"one-stream scores {len(differ)}{' ' + str(differ) if differ else ''}")
+    if differ or int(n_valid.min()) == 0:
+        raise AssertionError(f"vmapped spectral scores differ from one stream's in streams "
+                             f"{differ}")
+
+
+def batched_path(cfg: SlamConfig, gt: np.ndarray, scans: list, dev, name_power: str) -> tuple:
+    """Phase 13: the batched odometry path, checked against the ground truth
+    and against RadarOdometry on each stream alone, then timed; returns its
+    launches, the median step ms and one more step to profile."""
+    n_scans = STREAM_STEPS + 1
+    offsets = np.arange(STREAMS) % STREAM_OFFSETS
+    stack = torch.as_tensor(np.stack(scans), device=dev)
+    batches = [stack[torch.as_tensor(offsets + i, device=dev)] for i in range(n_scans)]
+    az = torch.as_tensor(default_azimuths(cfg), device=dev)
+    step = make_batched_odometry_step(cfg, device=dev)
+    max_coast = cfg.registration.max_coast_frames
+
+    def window() -> tuple:
+        """Seed and STREAM_STEPS steps; the twist carried as RadarOdometry
+        carries it.  Returns (launches, rel_poses, oks, applied increments,
+        step seconds, the inputs of one more step)."""
+        torch.cuda.synchronize()
+        reset_counts()
+        prev = extract_scan_features_batched(batches[0], az, cfg)
+        twists = torch.zeros(STREAMS, 3, device=dev)
+        coast = torch.zeros(STREAMS, dtype=torch.int64, device=dev)
+        rels, oks, applied, secs = [], [], [], []
+        for i in range(1, n_scans):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prev, res, _ = step(batches[i], az, prev, twists)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            coast = torch.where(res.ok, torch.zeros_like(coast), coast + 1)
+            twists = torch.where(res.ok[:, None], res.rel_pose, torch.where(
+                (coast > max_coast)[:, None], torch.zeros_like(twists), twists))
+            rels.append(res.rel_pose)
+            oks.append(res.ok)
+            applied.append(twists)
+        launches = read_counts()
+        return (launches, torch.stack(rels).cpu().numpy(), torch.stack(oks).cpu().numpy(),
+                torch.stack(applied).cpu().numpy().astype(np.float64), secs,
+                (batches[n_scans - 1], az, prev, twists))
+
+    launches, rels, oks, applied, secs, last = window()
+    want_k1b = STREAM_STEPS + 1
+    print(f"batched odometry path: B = {STREAMS} streams x {STREAM_STEPS} steps, stream b on "
+          f"scans b % {STREAM_OFFSETS} + 0..{STREAM_STEPS}; launches {launches} (K1xB "
+          f"{launches['cen_peaks_batched']}: one per step plus one for the seed)")
+    if launches["cen_peaks_batched"] != want_k1b or launches["cen_peaks"]:
+        raise AssertionError(f"K1 x B launched {launches['cen_peaks_batched']} times (want "
+                             f"{want_k1b}), K1 {launches['cen_peaks']} (want 0)")
+
+    # each stream against the ground truth
+    worst_ate, worst_share, min_ok = 0.0, 0.0, STREAM_STEPS
+    for b, o in enumerate(offsets):
+        pose = np.zeros(3)
+        est = [pose]
+        for i in range(STREAM_STEPS):
+            pose = se2_mul_np(pose, applied[i, b])
+            est.append(pose)
+        est = np.asarray(est)
+        ref = np.asarray([se2_between_np(gt[o], gt[o + i]) for i in range(n_scans)])
+        path = float(np.sum(np.linalg.norm(np.diff(gt[o:o + n_scans, :2], axis=0), axis=1)))
+        ate = float(np.sqrt(np.mean(np.sum((est[:, :2] - ref[:, :2]) ** 2, axis=1))))
+        n_ok = int(oks[:, b].sum())
+        worst_ate, min_ok = max(worst_ate, ate), min(min_ok, n_ok)
+        worst_share = max(worst_share, ate / path)
+        if n_ok < STREAM_STEPS - 1 or not ate < 0.05 * path or not np.isfinite(est).all():
+            raise AssertionError(f"stream {b}: ok {n_ok}/{STREAM_STEPS}, ATE {ate} m over a "
+                                 f"{path} m path")
+    print(f"  against the ground truth: ok at least {min_ok}/{STREAM_STEPS} in every stream, "
+          f"ATE at most {worst_ate:.4f} m ({worst_share:.4f} of the stream's path)")
+
+    # each stream against RadarOdometry on that stream alone (streams b and
+    # b + 16 see the same scans)
+    ref_rel, ref_ok = {}, {}
+    t0 = time.perf_counter()
+    for o in range(STREAM_OFFSETS):
+        odo = RadarOdometry(cfg, device=dev)
+        odo.process(scans[o])
+        r, k = [], []
+        for i in range(1, n_scans):
+            odo.process(scans[o + i])
+            r.append(odo.last_result.rel_pose.cpu().numpy())
+            k.append(odo.last_ok)
+        ref_rel[o], ref_ok[o] = np.asarray(r), np.asarray(k)
+    ref_s = time.perf_counter() - t0
+    dxy = np.asarray([np.abs(rels[:, b, :2] - ref_rel[o][:, :2]).max()
+                      for b, o in enumerate(offsets)])
+    dth = np.asarray([np.abs(rels[:, b, 2] - ref_rel[o][:, 2]).max()
+                      for b, o in enumerate(offsets)])
+    n_ok_diff = sum(int((oks[:, b] != ref_ok[o]).sum()) for b, o in enumerate(offsets))
+    print(f"  against RadarOdometry on each stream alone ({STREAM_OFFSETS} runs of {n_scans} "
+          f"scans, {ref_s:.1f} s): ok differs in {n_ok_diff} steps; rel_pose differs by at most "
+          f"{dxy.max():.3g} m (stream {int(dxy.argmax())}) and {dth.max():.3g} rad (stream "
+          f"{int(dth.argmax())})")
+    if n_ok_diff or dxy.max() > 1e-3 or dth.max() > 1e-4:
+        raise AssertionError(f"the batched path differs from RadarOdometry: ok in {n_ok_diff} "
+                             f"steps, {dxy.max()} m in stream {int(dxy.argmax())}, {dth.max()} "
+                             f"rad in stream {int(dth.argmax())}")
+
+    check_spectral_invariance(extract_scan_features_batched(batches[0], az, cfg),
+                              extract_scan_features_batched(batches[1], az, cfg), cfg)
+
+    # two more timed windows
+    windows = [secs] + [window()[4] for _ in range(BATCH_WINDOWS - 1)]
+    ms = 1e3 * np.asarray(windows)
+    med = float(np.median(ms))
+    print(f"make_batched_odometry_step, default config, B = {STREAMS}: median {med:.3f} ms per "
+          f"step (min {ms.min():.3f}, max {ms.max():.3f}) over {BATCH_WINDOWS} windows of "
+          f"{STREAM_STEPS} steps (window medians "
+          f"{', '.join('%.3f' % x for x in np.median(ms, axis=1))}); aggregate "
+          f"{1e3 * STREAMS / med:.1f} frames/s at the median; host clock after synchronize "
+          f"[{name_power}]")
+    return launches, med, lambda: step(*last)
+
+
 def main() -> None:
     # 1. the card
     if not torch.cuda.is_available():
@@ -786,7 +1018,25 @@ def main() -> None:
           f"{scan_whole:.3f}, streamed median {stream_med:.3f} / whole run "
           f"{stream_whole:.3f}; one call, host clock [{name_power}]")
 
-    # 12. kernel times at the main path's shapes
+    # 12. K1 x B against its plain version
+    print("K1 x B vs plain (one launch for all scans):")
+    batch = torch.as_tensor(np.stack(slam_scan_list + scans[:STREAMS - N_SLAM_SCANS]),
+                            device=dev)
+    batch[1] = inputs["packed4"]
+    batch[2] = 0.0
+    k1b_err = max(
+        check_k1b("B = 1", x[None].contiguous(), cfg),
+        check_k1b("B = 3", batch[3:6].contiguous(), cfg),
+        check_k1b("B = 64, scan 1 through the 4-bit wire format, scan 2 all zero", batch, cfg),
+    )
+
+    # 13. the batched odometry path
+    batched_launches, batched_med, batched_step = batched_path(cfg, gt, scans, dev, name_power)
+    print(f"odometry, ms per step: one stream (RadarOdometry.process) median {step_ms:.3f}, "
+          f"{STREAMS} streams (make_batched_odometry_step) median {batched_med:.3f}; one call, "
+          f"host clock [{name_power}]")
+
+    # 14. kernel times at the main path's shapes
     for label, b in (("30 rows", prefix), ("all live", live_bank)):
         k2_ms, k2_plain, pa, pb = kernel_vs_plain(
             lambda: sc_corr.sc_shift_distances_cuda(query, b),
@@ -812,8 +1062,14 @@ def main() -> None:
     print(f"K3-T nearest_neighbors_multi {tuple(src_t.shape)} x {tuple(tgt_t.shape)}: "
           f"kernel {k3t_ms:.4f} ms, plain {k3t_plain:.4f} ms (halves {pa:.4f} / {pb:.4f}), "
           f"median of {TIMED_RUNS} CUDA-event-timed runs each [{name_power}]")
+    k1b_ms, k1b_plain, pa, pb = kernel_vs_plain(
+        lambda: cen_peaks.cen2019_scores_batched_cuda(batch, cfg.features, cfg.radar),
+        lambda: cen2019.cen2019_scores_batched(batch, cfg.features, cfg.radar))
+    print(f"K1 x B cen2019_scores_batched {tuple(batch.shape)}: kernel {k1b_ms:.4f} ms, plain "
+          f"{k1b_plain:.4f} ms (halves {pa:.4f} / {pb:.4f}), median of {TIMED_RUNS} "
+          f"CUDA-event-timed runs each [{name_power}]")
 
-    # 13. device time per launch against the bound, at the main path's shapes
+    # 15. device time per launch against the bound, at the main path's shapes
     fc = cfg.features
     na, nbp = x.shape
     ntaps = cen2019.smoothing_taps(fc).numel()
@@ -885,25 +1141,35 @@ def main() -> None:
             # K3's count per slot: each slot's valid targets
             SLOTS * (8 * nq + 9 * nt + 12 * nq), 5 * nq * n_valid_t,
             k3t_ms, k3t_plain, k3t_err, "nn_dist_multi", "nn_dist", "nn_dist.py:42"),
+        "cen2019_scores_batched": (
+            lambda: cen_peaks.cen2019_scores_batched_cuda(batch, fc, cfg.radar),
+            # K1's count for each of the 64 scans (11.06 MB a scan)
+            batch.shape[0] * 8 * na * nbp, batch.shape[0] * na * nbp * (2 * ntaps + 17),
+            k1b_ms, k1b_plain, k1b_err, "cen_peaks_batched", "cen_peaks", "cen_peaks.py:121"),
     }
+    #: the path whose launches a kernel's report gives (the per-scan SLAM
+    #: path for the rest)
+    main_path = {"sc_corr_multi": stream_launches, "nn_dist_multi": stream_launches,
+                 "cen_peaks_batched": batched_launches}
     report = []
     for name, (launch, n_bytes, n_ops, ms, plain, err, counter, src_name,
                tpu) in specs.items():
         odo_n = odo_launches.get(counter, 0)
         dev_ms = device_ms(launch)
         b_ms, b_by = bound(n_bytes, n_ops)
-        per_call = kernels_per_call(launch)
-        main = stream_launches if counter.endswith("_multi") else launches
+        per_call = kernels_per_call(name, launch)
+        main = main_path.get(counter, launches)
         print(f"{name}: device {dev_ms:.5f} ms per launch (CUDA events over "
               f"{DEVICE_LAUNCHES} back-to-back launches), bound {1e3 * b_ms:.3f} us by "
               f"{b_by} ({n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.2f} Mop), share "
               f"{b_ms / dev_ms:.4f}; wrapper-inclusive {ms:.4f} ms; launches odometry "
               f"{odo_n}, SLAM per scan {launches[counter]}, streamed "
-              f"{stream_launches[counter]}; device kernels per call: "
-              f"{', '.join(f'{k} x{c}' for k, c in per_call) or 'not measured (no device events)'}"
-              f" [{name_power}]")
-        if per_call and sum(c for _, c in per_call) != 1:
-            raise AssertionError(f"{name}: one call ran {per_call}, expected one kernel")
+              f"{stream_launches[counter]}, batched {batched_launches[counter]}; device "
+              f"work per call (CUDA graph capture): {per_call[0]} kernel, {per_call[1]} other "
+              f"nodes [{name_power}]")
+        if per_call != (1, 0):
+            raise AssertionError(f"{name}: one call put {per_call[0]} kernels and "
+                                 f"{per_call[1]} other nodes on the device, expected one kernel")
         if main[counter] == 0:
             raise AssertionError(f"{name}: no launch on its main path")
         report.append({
@@ -912,9 +1178,21 @@ def main() -> None:
             "replaces": f"navtech_radar_slam_tpu/ops/pallas/{tpu}",
             "launches": main[counter], "launches_odometry": odo_n,
             "launches_slam": launches[counter], "launches_streaming": stream_launches[counter],
+            "launches_batched": batched_launches[counter],
             "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
+
+    # one odometry step of each path under the profiler
+    one = RadarOdometry(cfg, device=dev)
+    one.process(scans[0])
+    for label, fn in (("one RadarOdometry.process (scan 1 after scan 0)",
+                       lambda: one.process(scans[1])),
+                      (f"one batched step (B = {STREAMS})", batched_step)):
+        wall, busy, n_kernels = device_busy(fn)
+        print(f"{label} under torch.profiler: {wall:.3f} ms wall, device kernels {n_kernels}, "
+              "busy " + (f"{busy:.3f} ms, share {busy / wall:.4f}" if busy is not None else
+                         "not measured (no device events)") + f" [{name_power}]")
 
     if "jax" in sys.modules or any(m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")

@@ -5,7 +5,8 @@ NVIDIA Hopper GPU.  The JAX package stays the reference: every module here
 carries the name of its JAX counterpart, and the tests hold each against it
 on the same numpy inputs.
 
-Ported so far: the radar-odometry front-end (``models.odometry``) and the
+Ported so far: the radar-odometry front-end (``models.odometry``), one
+stream or B streams in one call (``make_batched_odometry_step``), and the
 full-SLAM engine (``models.slam.SlamEngine``), per scan and streamed:
 
   polar scan -> cen2019 peaks  (ops.cen2019; CUDA kernel ops.kernels.cen_peaks)
@@ -16,6 +17,8 @@ full-SLAM engine (``models.slam.SlamEngine``), per scan and streamed:
              -> loop search  (ops.scancontext; CUDA kernel ops.kernels.sc_corr)
              -> submap ICP   (ops.icp; CUDA kernel ops.kernels.nn_dist)
              -> robust pose-graph refine               (models.posegraph)
+  B streams  -> one K1 x B launch for the B scans, one top-k for the batch,
+                the registration under torch.func.vmap
   chunk      -> odometry of S scans on the device, keyframes in segments of
                 up to 16 slots: one T-slot search (K2-T) per segment and one
                 T-slot nearest-neighbour launch (K3-T) per ICP iteration

@@ -1,9 +1,12 @@
-// cen2019 score map of one polar radar scan, for NVIDIA Hopper (sm_90a).
+// cen2019 score map of one polar radar scan, or of a batch of B scans, for
+// NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel
 //   navtech_radar_slam_tpu/ops/pallas/cen_peaks.py::cen2019_scores_pallas
 // and computes what its body (_kernel) computes, for one (NA, NBp) float32
-// scan (400 x 3456 for the Navtech CIR204-H):
+// scan (400 x 3456 for the Navtech CIR204-H), and for each scan of a
+// (B, NA, NBp) batch what it computes for that scan alone (the JAX package's
+// jax.vmap of it in make_batched_odometry_step):
 //
 //   s      = power inside the range band [min_bin, nb_valid), 0 outside
 //   sm     = s convolved along range with the Gaussian taps (zero padding)
@@ -60,6 +63,21 @@
 // registers over a zero-padded row; the rest is the three grid barriers and
 // short elementwise phases whose __fdiv_rn and row reductions are
 // issue-bound at three to four blocks per SM.
+//
+// A batch (K1 x B) is the same grid of NA resident row blocks, looping
+// over the B scans: each scan's four phases and three barriers run inside
+// the loop (3B grid barriers in one launch), each scan has its own 2 * NA
+// row statistics, and the rows in shared memory are refilled per scan.  A
+// scan's whole-scan values are reduced in the fixed order of one scan, so
+// scan b's map is the one-scan launch's map of scan b bit for bit.  One
+// scan (K1) is this loop at B = 1: one entry point, cen2019_scores_launch,
+// takes both.  Why not one grid over all B x NA rows: a grid barrier needs
+// every block resident, and at 400 rows an H100 holds 528 row blocks (four
+// on each SM), so the scans cannot all be resident at once; block groups of
+// one scan each, with barriers of their own, would hold at most one 400-row
+// scan on the card too.  The cost is B times the one-scan chain of phases
+// and barriers: the launch moves 11 MB a scan, but its time is B times K1's,
+// far above what the bytes bound (PERF.md has both).
 //
 // Co-residency is the risk: the host checks cudaDevAttrCooperativeLaunch
 // and that cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs covers every
@@ -132,25 +150,24 @@ __host__ __device__ constexpr size_t row_smem_bytes(int nbp, int ntaps) {
   return sizeof(float) * (2 * static_cast<size_t>(nbp) + ntaps - 1);
 }
 
-// One block per azimuth row r; all na blocks resident (cooperative launch).
-// N is the number of smoothing taps when known at compile time (13, for the
-// 2-bin sigma of every shipped config: the taps sit in registers and the
-// loop unrolls), 0 to take taps.n at run time.
-// stats holds 2 * na floats: the row maxima of gs, then the row sums of h.
-// `out` is read by other blocks in phase B, so it is neither const nor
-// __restrict__, and those reads go through L2 (__ldcg), never the
-// non-coherent read-only path.
+// The map of one scan.  Block r owns azimuth row r; all na blocks are
+// resident (cooperative launch).  N is the number of smoothing taps when
+// known at compile time (13, for the 2-bin sigma of every shipped config:
+// the taps sit in registers and the loop unrolls), 0 to take taps.n at run
+// time.  stats holds 2 * na floats: the row maxima of gs, then the row sums
+// of h.  `out` is read by other blocks in phase B, so it is neither const
+// nor __restrict__, and those reads go through L2 (__ldcg), never the
+// non-coherent read-only path.  smem holds the rows, red the reduction
+// scratch.
 template <int N>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
-cen2019_kernel(const float* __restrict__ power, float* out, float* stats, int na,
-               int nbp, int min_bin, int nb_valid, Taps taps, float zq) {
-  extern __shared__ float smem[];
+__device__ __forceinline__ void score_scan(const float* __restrict__ power, float* out,
+                                           float* stats, int na, int nbp, int min_bin,
+                                           int nb_valid, Taps taps, float zq,
+                                           float* smem, float* red, cg::grid_group& grid) {
   const int ntaps = N > 0 ? N : taps.n;
   const int rad = ntaps / 2;
   float* a = smem;
   float* w = smem + nbp + rad;   // w[-rad, nbp + rad) is in shared memory
-  __shared__ float red[kThreads];
-  cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
   const int r = blockIdx.x;
   const size_t row = static_cast<size_t>(r) * nbp;
@@ -268,6 +285,25 @@ cen2019_kernel(const float* __restrict__ power, float* out, float* stats, int na
   for (int c = tid; c < nbp; c += kThreads) out[row + c] = a[c] != 0.f ? w[c] : neg_inf();
 }
 
+// The maps of nscans scans of na x nbp, one after another (one scan: K1; a
+// batch: K1 x B).  Scan b reads power + b * na * nbp, writes the same plane
+// of out and keeps its row statistics at stats + 2 * na * b.
+template <int N>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+cen2019_kernel(const float* __restrict__ power, float* out, float* stats, int nscans,
+               int na, int nbp, int min_bin, int nb_valid, Taps taps, float zq) {
+  extern __shared__ float smem[];
+  __shared__ float red[kThreads];
+  cg::grid_group grid = cg::this_grid();
+  const size_t plane = static_cast<size_t>(na) * nbp;
+  for (int b = 0; b < nscans; ++b) {
+    // the last phase of scan b - 1 still reads the rows this one refills
+    if (b > 0) __syncthreads();
+    score_scan<N>(power + b * plane, out + b * plane, stats + 2 * static_cast<size_t>(na) * b,
+                  na, nbp, min_bin, nb_valid, taps, zq, smem, red, grid);
+  }
+}
+
 }  // namespace
 
 // The launch constants the Python wrapper mirrors (ops/kernels/cen_peaks.py).
@@ -291,15 +327,16 @@ extern "C" int cen2019_device_limits(int* out) {
   return static_cast<int>(e);
 }
 
-// Enqueue the one cooperative launch on `stream`.  `stats` holds 2 * na
-// floats; the caller allocates it and the output.  Returns the CUDA error
-// (0 = cudaSuccess), cudaErrorCooperativeLaunchTooLarge when the card cannot
-// hold all na blocks at once, and leaves no error pending.  There is no
-// multi-launch fallback.  Does not synchronise.
-extern "C" int cen2019_scores_launch(const float* power, float* out, float* stats, int na,
-                                     int nbp, int min_bin, int nb_valid, const float* taps,
-                                     int ntaps, float zq, void* stream) {
-  if (na < 1 || nbp < 1 || ntaps < 1 || ntaps > kMaxTaps || ntaps % 2 == 0)
+// The one cooperative launch of nscans scans on `stream` (K1 is nscans = 1,
+// K1 x B a (nscans, na, nbp) batch).  `stats` holds
+// 2 * na * nscans floats; the caller allocates it and the output.  Returns
+// the CUDA error (0 = cudaSuccess), cudaErrorCooperativeLaunchTooLarge when
+// the card cannot hold all na blocks at once, and leaves no error pending.
+// There is no multi-launch fallback.  Does not synchronise.
+extern "C" int cen2019_scores_launch(const float* power, float* out, float* stats, int nscans,
+                                     int na, int nbp, int min_bin, int nb_valid,
+                                     const float* taps, int ntaps, float zq, void* stream) {
+  if (nscans < 1 || na < 1 || nbp < 1 || ntaps < 1 || ntaps > kMaxTaps || ntaps % 2 == 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Taps t;
   t.n = ntaps;
@@ -323,7 +360,7 @@ extern "C" int cen2019_scores_launch(const float* power, float* out, float* stat
   if (e == cudaSuccess && static_cast<long long>(per_sm) * sms < na)
     e = cudaErrorCooperativeLaunchTooLarge;
   if (e == cudaSuccess) {
-    void* args[] = {&power, &out, &stats, &na, &nbp, &min_bin, &nb_valid, &t, &zq};
+    void* args[] = {&power, &out, &stats, &nscans, &na, &nbp, &min_bin, &nb_valid, &t, &zq};
     e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(na),
                                     dim3(kThreads), args, smem,
                                     static_cast<cudaStream_t>(stream));
@@ -331,3 +368,4 @@ extern "C" int cen2019_scores_launch(const float* power, float* out, float* stat
   const cudaError_t last = cudaGetLastError();  // clears a refused call
   return static_cast<int>(e != cudaSuccess ? e : last);
 }
+

@@ -7,12 +7,16 @@ re-registrations of the matched set (``odometry_step``).  ``RadarOdometry``
 is the host accumulator: one fetch of (ok, rel_pose) per scan, the pose
 composed on the host in float64.
 
-Not ported yet: ``make_batched_odometry_step`` (the vmap over streams needs
-a batched kernel).
+``make_batched_odometry_step`` advances B independent streams in one call
+(mapping fleets, dataset reprocessing): one batched extraction with one
+K1 x B launch, then the per-stream registration under ``torch.func.vmap``
+(the counterpart of the JAX package's ``jax.vmap``), each stream's result
+that of ``odometry_step`` on the stream alone.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -62,7 +66,7 @@ def doppler_compensate(xy: torch.Tensor, twist: torch.Tensor,
 
 
 def _masked_desc(desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    return torch.where(valid[:, None], desc, torch.zeros_like(desc))
+    return torch.where(valid[..., None], desc, torch.zeros_like(desc))
 
 
 def _with_xy(feats: ScanFeatures, xy: torch.Tensor, fcfg) -> ScanFeatures:
@@ -156,6 +160,36 @@ def extract_scan_features(power: torch.Tensor, azimuths: torch.Tensor,
     )
 
 
+def extract_scan_features_batched(powers: torch.Tensor, azimuths: torch.Tensor,
+                                  cfg: SlamConfig, ray_valids: Optional[torch.Tensor] = None,
+                                  packed: bool = False) -> ScanFeatures:
+    """``extract_scan_features`` of each scan of a batch, as ScanFeatures
+    with a leading B axis (the counterpart of ``jax.vmap`` of it).
+
+    ``powers``: (B, NA, NBp) float32, raw uint8, or with ``packed`` the
+    (B, NA, NBp // 2) 4-bit wire format; ``azimuths`` (NA,) shared by the
+    streams; ``ray_valids`` ((B, NA) bool, optional) each stream's valid
+    rays.  One K1 x B launch on a CUDA batch and one exact top-k for the
+    batch; the descriptors under ``torch.func.vmap`` (two (B, K, K, P)
+    float32 hat tensors at once, 4.3 GB each at B = 64, K = 1024, P = 16)."""
+    if ray_valids is not None:
+        powers = powers * ray_valids.to(powers.dtype)[:, :, None]
+    powers = decode_power(powers, packed)
+    feats = cen2019.extract_features_batched(powers.contiguous(), cfg.features, cfg.radar)
+    xy = cen2019.features_to_xy(feats, azimuths, cfg.radar)
+    desc = torch.func.vmap(functools.partial(features.constellation_descriptors,
+                                             fcfg=cfg.features))(xy, feats.power, feats.valid)
+    ray_frac = (feats.azimuth_idx.to(torch.float32) + 0.5) / cfg.radar.num_azimuths
+    return ScanFeatures(
+        xy=xy,
+        desc=_masked_desc(desc, feats.valid),
+        power=feats.power,
+        valid=feats.valid,
+        ranges=torch.linalg.norm(xy, dim=-1),
+        ray_frac=ray_frac,
+    )
+
+
 def match_feature_pair(prev: ScanFeatures, curr: ScanFeatures,
                        cfg: SlamConfig) -> features.MatchSet:
     return features.match_features(
@@ -170,6 +204,32 @@ def register_feature_pair(prev: ScanFeatures, curr: ScanFeatures,
                                        cfg.registration)
 
 
+def register_step(prev: ScanFeatures, curr: ScanFeatures, twist: torch.Tensor,
+                  cfg: SlamConfig
+                  ) -> Tuple[registration.RegistrationResult, ScanFeatures]:
+    """The step after extraction: register the current scan's features
+    against the previous ones.  Returns (result, de-skewed features).
+
+    With motion compensation on, match ONCE on raw descriptors, register for
+    a seed twist, then de-skew the matched set with the twist estimate and
+    re-register, twice.  One stream's tensors; ``torch.func.vmap`` of it is
+    the batched step's."""
+    matches = match_feature_pair(prev, curr, cfg)
+    res = registration.register_scans(matches, cfg.registration)
+    if not (cfg.features.motion_compensation
+            or cfg.features.doppler_compensation):
+        return res, curr
+
+    t = torch.where(res.ok, res.rel_pose, twist)
+    for _ in range(2):
+        res = registration.register_scans(deskew_matches(matches, t, cfg),
+                                          cfg.registration)
+        t = torch.where(res.ok, res.rel_pose, t)
+    # descriptors are not rebuilt: no downstream consumer reads curr_out.desc
+    xy = _deskew_xy(curr.xy, curr.ray_frac, t, cfg)
+    return res, curr._replace(xy=xy, ranges=torch.linalg.norm(xy, dim=-1))
+
+
 def odometry_step(
     power: torch.Tensor,
     azimuths: torch.Tensor,
@@ -180,27 +240,49 @@ def odometry_step(
     packed: bool = False,
 ) -> Tuple[ScanFeatures, registration.RegistrationResult, ScanFeatures]:
     """One front-end step: extract the current scan, register it against the
-    previous one.  Returns (raw carry, result, de-skewed features).
-
-    With motion compensation on, match ONCE on raw descriptors, register for
-    a seed twist, then de-skew the matched set with the twist estimate and
-    re-register, twice.  The carry stays raw."""
+    previous one (``register_step``).  Returns (raw carry, result, de-skewed
+    features); the carry stays raw."""
     curr = extract_scan_features(power, azimuths, cfg, ray_valid, packed)
-    matches = match_feature_pair(prev, curr, cfg)
-    res = registration.register_scans(matches, cfg.registration)
-    if not (cfg.features.motion_compensation
-            or cfg.features.doppler_compensation):
-        return curr, res, curr
-
-    t = torch.where(res.ok, res.rel_pose, twist)
-    for _ in range(2):
-        res = registration.register_scans(deskew_matches(matches, t, cfg),
-                                          cfg.registration)
-        t = torch.where(res.ok, res.rel_pose, t)
-    # descriptors are not rebuilt: no downstream consumer reads curr_out.desc
-    xy = _deskew_xy(curr.xy, curr.ray_frac, t, cfg)
-    curr_out = curr._replace(xy=xy, ranges=torch.linalg.norm(xy, dim=-1))
+    res, curr_out = register_step(prev, curr, twist, cfg)
     return curr, res, curr_out
+
+
+def make_batched_odometry_step(cfg: SlamConfig,
+                               device: torch.device | str = DEFAULT_DEVICE) -> Callable:
+    """Data-parallel front-end: one call advances B independent scan streams
+    (the JAX package's ``make_batched_odometry_step``, ``jax.vmap`` of the
+    step with ``in_axes=(0, None, 0, 0)``).
+
+    Returns
+        (powers (B, NA, NBp) (or packed (B, NA, NBp // 2) uint8), azimuths
+         (NA,) shared, prev ScanFeatures with a leading B axis, twists
+         (B, 3), ray_valids=None ((B, NA) bool), packed=False) ->
+        (carry', RegistrationResult, de-skewed features), each with a
+        leading B axis.
+    Stream b's result is ``odometry_step`` on stream b alone: one batched
+    extraction (one K1 x B launch on the card), then ``register_step``
+    under ``torch.func.vmap``, whose reductions are batch-invariant where a
+    rounding difference could change a discrete choice
+    (``registration.spectral_inlier_scores``).  The step reads nothing back
+    per stream; the exact top-k waits for the device once per batch.  Every
+    input must be on ``device`` (the card unless the caller names the CPU);
+    one on another device raises."""
+    dev = resolve_device(device)
+    pair = torch.func.vmap(functools.partial(register_step, cfg=cfg))
+
+    def step(powers, azimuths, prev, twists, ray_valids=None, packed=False):
+        named = [("powers", powers), ("azimuths", azimuths), ("twists", twists),
+                 ("ray_valids", ray_valids)]
+        for name, x in named + [(f"prev.{k}", v) for k, v in prev._asdict().items()]:
+            if x is not None and (x.device.type != dev.type
+                                  or (dev.index is not None and x.device.index != dev.index)):
+                raise ValueError(f"make_batched_odometry_step: {name} is on {x.device}, "
+                                 f"the step runs on {dev}")
+        curr = extract_scan_features_batched(powers, azimuths, cfg, ray_valids, packed)
+        res, curr_out = pair(prev, curr, twists)
+        return curr, res, curr_out
+
+    return step
 
 
 def make_odometry_sequence(cfg: SlamConfig, return_features: bool = False

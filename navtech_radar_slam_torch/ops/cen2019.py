@@ -12,6 +12,12 @@ implementations with one contract:
 ``cen2019_features`` picks between them by the tensor's device and nothing
 else, then takes the exact top-k with JAX's tie order (``top_k`` returns
 equal values lowest index first; ``torch.topk`` promises no order).
+
+A batch of B scans (``extract_features_batched``, the counterpart of
+``jax.vmap`` of the detector) has the same two implementations,
+``cen2019_scores_batched`` and K1 x B (``cen_peaks.
+cen2019_scores_batched_cuda``, one launch), and one exact top-k for all B
+scans that waits for the device once per batch.
 """
 
 from __future__ import annotations
@@ -173,37 +179,40 @@ def cen2019_scores(power: torch.Tensor, fcfg: FeatureConfig,
     return torch.where(peaks, s_smooth, torch.full_like(s_smooth, float("-inf")))
 
 
-def _finalize_topk_scores(scores2d: torch.Tensor, k: int) -> FeatureSet:
-    """Exact top-k of a score map with JAX's tie order (equal scores lowest
-    flat index first).  Only the finite entries are sorted: ``nonzero`` lists
-    them in row-major order and a stable descending sort keeps that order
-    among ties.  Slots beyond the finite count are padded as JAX pads them:
-    azimuth = range bin = 0, power 0, invalid.
+def _finalize_topk_scores_batched(scores: torch.Tensor, k: int) -> FeatureSet:
+    """Exact top-k of each map of a (B, NA, NBp) batch, as (B, k) fields,
+    with JAX's tie order (equal scores lowest flat index first) and one
+    ``nonzero`` (one wait for the device) for the whole batch.  Only the
+    finite entries are sorted: ``nonzero`` lists them by scan, then by flat
+    index; a stable descending sort of their values, then a stable sort by
+    scan, leaves each scan's entries in a segment of their own, ties in
+    ``nonzero``'s order.  Each scan takes the first k of its segment; a slot
+    past the end of it is padded as JAX pads it: azimuth = range bin = 0,
+    power 0, invalid.
 
     JAX's ``approx_max_k`` (``topk_recall < 1``) approximates only on a TPU
     and is exact on the CPU; the port is always exact."""
-    nb = scores2d.shape[1]
-    flat = scores2d.reshape(-1)
-    idx = torch.nonzero(torch.isfinite(flat)).squeeze(1)
-    vals = flat[idx]
-    order = torch.sort(vals, descending=True, stable=True).indices[:k]
-    n = order.shape[0]
-    sel = idx[order]
-    dev = scores2d.device
-    az = torch.zeros(k, dtype=torch.int64, device=dev)
-    rb = torch.zeros(k, dtype=torch.int64, device=dev)
-    power = torch.zeros(k, dtype=torch.float32, device=dev)
-    valid = torch.zeros(k, dtype=torch.bool, device=dev)
-    az[:n] = sel // nb
-    rb[:n] = sel % nb
-    power[:n] = vals[order]
-    valid[:n] = True
-    return FeatureSet(azimuth_idx=az, range_bin=rb, power=power, valid=valid)
+    n_scans, _, nb = scores.shape
+    flat = scores.reshape(n_scans, -1)
+    scan, idx = torch.nonzero(torch.isfinite(flat)).unbind(1)
+    vals = flat[scan, idx]
+    order = torch.sort(vals, descending=True, stable=True).indices
+    order = order[torch.sort(scan[order], stable=True).indices]
+    counts = torch.bincount(scan, minlength=n_scans)
+    slot = torch.arange(k, device=scores.device)
+    valid = slot[None, :] < counts[:, None]
+    # a slot past its scan's segment reads the zero appended at the end
+    pos = torch.where(valid, (torch.cumsum(counts, 0) - counts)[:, None] + slot[None, :],
+                      scan.shape[0])
+    sel = torch.cat([idx[order], idx.new_zeros(1)])[pos]
+    return FeatureSet(azimuth_idx=sel // nb, range_bin=sel % nb,
+                      power=torch.cat([vals[order], vals.new_zeros(1)])[pos], valid=valid)
 
 
-def _finalize_topk(power: torch.Tensor, peaks: torch.Tensor, k: int) -> FeatureSet:
-    return _finalize_topk_scores(
-        torch.where(peaks, power, torch.full_like(power, float("-inf"))), k)
+def _finalize_topk_scores(scores2d: torch.Tensor, k: int) -> FeatureSet:
+    """The exact top-k of one (NA, NBp) score map: the batched top-k of a
+    batch of one."""
+    return FeatureSet(*(f[0] for f in _finalize_topk_scores_batched(scores2d[None], k)))
 
 
 def cen2019_features(power: torch.Tensor, fcfg: FeatureConfig,
@@ -222,13 +231,20 @@ def cen2019_features(power: torch.Tensor, fcfg: FeatureConfig,
     return _finalize_topk_scores(scores, fcfg.max_features)
 
 
-def cen2018_features(power: torch.Tensor, fcfg: FeatureConfig,
-                     rcfg: RadarConfig) -> FeatureSet:
-    """Threshold detector: per-azimuth mean + zq * std gate, then run peaks."""
+def cen2018_scores(power: torch.Tensor, fcfg: FeatureConfig,
+                   rcfg: RadarConfig) -> torch.Tensor:
+    """Threshold detector's score map: s_smooth at the run peaks of the
+    per-azimuth mean + zq * std gate, -inf elsewhere."""
     region, s_smooth, mean, var = _smoothed_region(power, fcfg, rcfg)
     mask = (s_smooth > mean + fcfg.cen2018_zq * torch.sqrt(var)) & region
     peaks = run_peaks(s_smooth, mask)
-    return _finalize_topk(s_smooth, peaks, fcfg.max_features)
+    return torch.where(peaks, s_smooth, torch.full_like(s_smooth, float("-inf")))
+
+
+def cen2018_features(power: torch.Tensor, fcfg: FeatureConfig,
+                     rcfg: RadarConfig) -> FeatureSet:
+    """Threshold detector: per-azimuth mean + zq * std gate, then run peaks."""
+    return _finalize_topk_scores(cen2018_scores(power, fcfg, rcfg), fcfg.max_features)
 
 
 def extract_features(power: torch.Tensor, fcfg: FeatureConfig,
@@ -240,9 +256,37 @@ def extract_features(power: torch.Tensor, fcfg: FeatureConfig,
     raise ValueError(f"unknown detector {fcfg.detector!r}")
 
 
+def cen2019_scores_batched(power: torch.Tensor, fcfg: FeatureConfig,
+                           rcfg: RadarConfig) -> torch.Tensor:
+    """(B, NA, NBp) power -> (B, NA, NBp) score maps: ``cen2019_scores`` of
+    each scan, stacked.  The plain twin of K1 x B."""
+    return torch.stack([cen2019_scores(p, fcfg, rcfg) for p in power])
+
+
+def extract_features_batched(power: torch.Tensor, fcfg: FeatureConfig,
+                             rcfg: RadarConfig) -> FeatureSet:
+    """``extract_features`` of each scan of a (B, NA, NBp) float32 batch, as
+    (B, K) fields.  cen2019 on a CUDA batch is one K1 x B launch, on a CPU
+    batch the plain twin; cen2018 (plain PyTorch on either device) runs scan
+    by scan.  Then one exact top-k for the batch."""
+    if fcfg.detector == "cen2019":
+        if power.device.type == "cuda":
+            scores = cen_peaks.cen2019_scores_batched_cuda(power, fcfg, rcfg)
+        elif power.device.type == "cpu":
+            scores = cen2019_scores_batched(power, fcfg, rcfg)
+        else:
+            raise ValueError(f"extract_features_batched: unsupported device {power.device}")
+    elif fcfg.detector == "cen2018":
+        scores = torch.stack([cen2018_scores(p, fcfg, rcfg) for p in power])
+    else:
+        raise ValueError(f"unknown detector {fcfg.detector!r}")
+    return _finalize_topk_scores_batched(scores, fcfg.max_features)
+
+
 def features_to_xy(feats: FeatureSet, azimuths: torch.Tensor,
                    rcfg: RadarConfig) -> torch.Tensor:
-    """Polar feature indices -> Cartesian sensor-frame xy (K, 2), meters.
+    """Polar feature indices -> Cartesian sensor-frame xy (K, 2), meters
+    ((B, K, 2) for the (B, K) fields of a batch).
 
     ``azimuths``: (num_azimuths,) ray angles (rad) from the scan metadata."""
     theta = azimuths[feats.azimuth_idx]

@@ -40,26 +40,53 @@ def point_sigmas(ranges: torch.Tensor, cfg: RegistrationConfig) -> torch.Tensor:
     return torch.sqrt(cfg.sigma_range ** 2 + tang * tang)
 
 
+def _halving_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis by halving it with elementwise adds (zeros pad
+    it to a power of two).  The order of the adds depends only on the
+    length, so a batch of rows (``torch.func.vmap``) sums each row exactly
+    as that row alone; a reduction kernel may split one row across threads
+    otherwise than it splits many."""
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    x = torch.nn.functional.pad(x, (0, width - n))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
 def spectral_inlier_scores(matches: MatchSet, cfg: RegistrationConfig) -> torch.Tensor:
     """Leading-eigenvector scores of the pairwise-consistency graph
     (A_ij = 1 iff the TIM lengths agree within the gate), by a fixed number
-    of power iterations."""
+    of power iterations, as unit-norm |v|.
+
+    Batch-invariant: under ``torch.func.vmap`` each stream's scores are the
+    one-stream scores bit for bit, since the stable top-k of the scores
+    turns a last-bit difference between near-equal scores into other TIMs.
+    So the product is a row-wise sum (a batched ``@`` rounds unlike a
+    matrix-vector product), the iterations scale v by its max (exact in any
+    order; the direction is the same as with JAX's per-iteration unit norm),
+    and the one unit norm at the end sums by ``_halving_sum``.  The row sum
+    is torch's reduction, which on the card may split a row by the shape:
+    ``tests/test_torch_batched_odometry.py`` holds the invariance on the
+    CPU, and ``chip_smoke.py`` on the card at B = 64 of the default config."""
     a, b = matches.src_xy, matches.dst_xy
     va = matches.valid
+    M = va.shape[-1]
 
     da = torch.linalg.norm(a[:, None, :] - a[None, :, :], dim=-1)
     db = torch.linalg.norm(b[:, None, :] - b[None, :, :], dim=-1)
     sig = point_sigmas(torch.maximum(matches.src_range, matches.dst_range), cfg)
     gate = cfg.consistency_gate + (sig[:, None] + sig[None, :])
-    A = (torch.abs(da - db) <= gate) & va[:, None] & va[None, :]
-    A.fill_diagonal_(False)
+    A = ((torch.abs(da - db) <= gate) & va[:, None] & va[None, :]
+         & ~torch.eye(M, dtype=torch.bool, device=va.device))
     Af = A.to(torch.float32)
 
     v = va.to(torch.float32)
-    v = v / torch.clamp(torch.linalg.norm(v), min=1e-9)
     for _ in range(cfg.spectral_iters):
-        v = Af @ v
-        v = v / torch.clamp(torch.linalg.norm(v), min=1e-9)
+        v = (Af * v[None, :]).sum(-1)
+        v = v / torch.clamp(torch.amax(v), min=1e-9)
+    v = v / torch.clamp(torch.sqrt(_halving_sum(v * v)), min=1e-9)
     return torch.where(va, torch.abs(v), torch.zeros_like(v))
 
 
@@ -260,8 +287,8 @@ def register_scans(matches: MatchSet, cfg: RegistrationConfig) -> RegistrationRe
     # b = R a + t  =>  T_rel = (R^T, -R^T t), theta_rel = -theta
     rel = torch.stack([-(c * t[0] + s * t[1]), -(-s * t[0] + c * t[1]), -theta])
 
-    inlier_mask = torch.zeros(M, dtype=torch.bool, device=inl.device)
-    inlier_mask[top_idx] = inl
+    # out of place, so that torch.func.vmap batches it
+    inlier_mask = torch.zeros(M, dtype=torch.bool, device=inl.device).scatter(0, top_idx, inl)
     return RegistrationResult(
         rel_pose=rel,
         inlier_mask=inlier_mask,
