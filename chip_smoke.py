@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's odometry, batched-odometry and full-SLAM paths
-once on one NVIDIA GPU.
+and its command line once on one NVIDIA GPU.
 
     python3 chip_smoke.py            (from the repository root)
 
@@ -68,11 +68,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
      stream's spectral scores under torch.func.vmap bit-equal to that
      stream's alone; then two more timed windows, and prints the
      aggregate frames/s and the median, min and max step ms;
- 14. times: K2 (on the all-live bank), K3, K2-T, K3-T (16 slots) and K1 x B
+ 14. the command line, navtech_radar_slam_torch.cli.main, in this process on
+     MulRan sequences that the port's make_sequence writes into a temporary
+     directory (the JAX rehearsal: 70 motion-distorted full-size scans of
+     circuit_trajectory(71, radius=12.0, speed=6.0), 1.4 laps, with gps.csv;
+     and 20 scans of the same circuit with other noise, seed=5).  Prints the
+     PNG decode ms per scan (median).  Every counter is reset just before
+     each CLI call and read just after.  (a) --chunk 16 --prewarm true
+     --pack4 true --checkpoint_every 35 --loop_debug_dir --use_gps true
+     --live true on the 70 scans at SlamConfig(): 70 scans, no odometry
+     failure, a first loop spanning more than 40 keyframes, stats.json's loop
+     count equal to final.npz's, ATE (the CLI's own evaluation against
+     global_pose.csv) under 1 % of the path, the outputs and an accepted loop
+     dump written, and outside prewarm K1 at least once per scan and K2-T and
+     K3-T at least once; prints prewarm's seconds, stats.json's rates, the
+     CLI's StageTimers report and the wall ms per scan.  (b) --resume from
+     the run's first checkpoint: 70 scans at the end, at least the
+     checkpoint's keyframes.  (c) per scan, --prior_session on (a)'s
+     final.npz, the 20 scans: an inter-session loop, rebased, and the second
+     session's keyframes within 1.5 m on average of their ground truth in
+     the first session's frame;
+ 15. times: K2 (on the all-live bank), K3, K2-T, K3-T (16 slots) and K1 x B
      (B = 64) against their plain versions, the per-scan SlamEngine.process
      time split into odometry, keyframe step and refine, and the streamed
      run's time per scan beside it;
- 15. for each kernel, the device time per launch (CUDA events around 200
+ 16. for each kernel, the device time per launch (CUDA events around 200
      back-to-back launches, the host queued ahead of the card behind a
      sleep kernel), its bound (the larger of the bytes it must move over
      the H100's 3.35 TB/s and its fp32 operations over 67 TFLOP/s, from
@@ -90,10 +110,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
 The line before the last is the kernel report
 {"kernels": [{"name", "route", "source", "replaces", "launches",
 "launches_odometry", "launches_slam", "launches_streaming",
-"launches_batched", "max_abs_err", "ms", "device_ms", "plain_ms",
-"bound_ms", "bound_by", "library_ms"}]} ("launches": the per-scan
-full-SLAM path's for K1, K2 and K3, the streamed path's for K2-T and K3-T,
-the batched odometry path's for K1 x B; "ms": one wrapper call fenced by
+"launches_batched", "launches_cli", "max_abs_err", "ms", "device_ms",
+"plain_ms", "bound_ms", "bound_by", "library_ms"}]} ("launches": the
+per-scan full-SLAM path's for K1, K2 and K3, the streamed path's for K2-T
+and K3-T, the batched odometry path's for K1 x B; "launches_cli": the sum
+over phase 14's three CLI calls, prewarm included; "ms": one wrapper call fenced by
 CUDA events, median; "library_ms": null, since no single PyTorch call
 computes any of the six functions), the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -106,8 +127,11 @@ from __future__ import annotations
 import ctypes
 import functools
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 
@@ -142,6 +166,10 @@ STREAM_STEPS = 8     # steps of each batched window
 STREAM_OFFSETS = 16  # stream b starts at scan b % STREAM_OFFSETS
 BATCH_WINDOWS = 3    # timed windows of the batched path
 SLOTS = 16           # query slots of the K2-T and K3-T checks and timings
+CLI_SCANS = 70       # the JAX rehearsal: 1.4 laps of radius 12 m at 1.5 m a scan
+CLI_SCANS_B = 20     # the second session, from the circuit's first pose
+#: the CLI run's ATE bound, a share of the path (PERF.md §2's full-SLAM rule)
+CLI_ATE_BOUND_FRAC = 0.01
 DEVICE_LAUNCHES = 200  # back-to-back launches per device-time reading
 # NVIDIA H100 SXM data-sheet peaks (at 700 W): HBM3 bytes/s, fp32 FLOP/s
 # outside the tensor cores
@@ -829,6 +857,163 @@ def batched_path(cfg: SlamConfig, gt: np.ndarray, scans: list, dev, name_power: 
     return launches, med, lambda: step(*last)
 
 
+def cli_path(cfg: SlamConfig, name_power: str) -> dict:
+    """Phase 14: the command line (``navtech_radar_slam_torch.cli.main``) on
+    MulRan sequences written by the port's writer into a temporary
+    directory: a chunked run with the checks of the JAX rehearsal, a resume
+    from its first checkpoint, and a second session attached to the first
+    run's final.npz.  Every launch counter is reset just before each CLI call
+    and read just after; returns each kernel's launches summed over the
+    three calls."""
+    from navtech_radar_slam_torch import cli
+    from navtech_radar_slam_torch.data.make_sequence import write_sequence
+    from navtech_radar_slam_torch.data.mulran import MulranRadarDataset
+    from navtech_radar_slam_torch.data.png import read_png
+    from navtech_radar_slam_torch.utils import checkpoint as ckpt
+    from navtech_radar_slam_torch.utils.metrics import path_length
+
+    total = defaultdict(int)
+    saved = []                     # (scans, path) of each checkpoint the CLI wrote
+    prewarm_s, prewarm_launches = [], defaultdict(int)
+    save_engine, prewarm = ckpt.save_engine, slam_mod.SlamEngine.prewarm
+
+    def keep_checkpoints(eng, path):
+        save_engine(eng, path)
+        if os.path.basename(path) == "checkpoint.npz":
+            kept = f"{path[:-4]}_{eng.num_scans}.npz"
+            shutil.copy(path, kept)
+            saved.append((eng.num_scans, kept))
+
+    def timed_prewarm(eng, *args, **kwargs):
+        before = read_counts()
+        t0 = time.perf_counter()
+        prewarm(eng, *args, **kwargs)
+        prewarm_s.append(time.perf_counter() - t0)
+        for name, n in read_counts().items():
+            prewarm_launches[name] += n - before[name]
+
+    def run(argv: list) -> tuple:
+        """One CLI call: (launches, wall s, stats.json, final.npz)."""
+        out = argv[argv.index("--output_dir") + 1]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        if cli.main(argv + ["--device", "cuda", "--save_plot", "false"]) != 0:
+            raise AssertionError(f"cli.main returned non-zero for {argv}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        for name, n in launches.items():
+            total[name] += n
+        with open(os.path.join(out, "stats.json")) as f:
+            stats = json.load(f)
+        return launches, wall, stats, dict(np.load(os.path.join(out, "final.npz")))
+
+    ckpt.save_engine = keep_checkpoints
+    slam_mod.SlamEngine.prewarm = timed_prewarm
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            seq_a, seq_b = os.path.join(tmp, "seq_a"), os.path.join(tmp, "seq_b")
+            t0 = time.perf_counter()
+            gt_a = write_sequence(seq_a, num_scans=CLI_SCANS, radius=12.0, speed=6.0, gps=True)
+            gt_b = write_sequence(seq_b, num_scans=CLI_SCANS_B, radius=12.0, speed=6.0, seed=5)
+            write_s = time.perf_counter() - t0
+            ds = MulranRadarDataset(seq_a, cfg.radar, raw_u8=True)
+            decode_ms = []
+            for name in ds.scan_files:
+                t0 = time.perf_counter()
+                read_png(os.path.join(ds.scan_dir, name))
+                decode_ms.append(1e3 * (time.perf_counter() - t0))
+            print(f"CLI sequences: {CLI_SCANS} + {CLI_SCANS_B} scans written by make_sequence "
+                  f"in {write_s:.1f} s; PNG decode (data.png, zlib + numpy) median "
+                  f"{np.median(decode_ms):.3f} ms per scan (min {min(decode_ms):.3f}, max "
+                  f"{max(decode_ms):.3f}) over {len(decode_ms)} scans, host clock")
+
+            # the chunked run
+            out_a, dumps = os.path.join(tmp, "out_a"), os.path.join(tmp, "loops")
+            launches, wall, stats, final = run([
+                "--seq_dir", seq_a, "--output_dir", out_a, "--chunk", str(CHUNK),
+                "--prewarm", "true", "--pack4", "true", "--checkpoint_every", "35",
+                "--loop_debug_dir", dumps, "--use_gps", "true", "--live", "true"])
+            events = final["loop_events"]
+            path = path_length(gt_a[:, :2])
+            accepted = [f for f in os.listdir(dumps) if f.endswith("_accepted.npz")]
+            print(f"CLI chunked run (--chunk {CHUNK} --pack4 true, two chunks in flight, "
+                  f"SlamConfig()): {stats['num_scans']} scans, {stats['num_keyframes']} "
+                  f"keyframes, {stats['num_loops']} loops (first "
+                  f"{tuple(int(x) for x in events[0, :2]) if len(events) else None}), odometry "
+                  f"failures {stats['odometry_failures']}, ATE {stats['ate_rmse']} m over a "
+                  f"{path:.2f} m path (bound {CLI_ATE_BOUND_FRAC} of it), RTE {stats['rte']}; "
+                  f"launches {launches}, of them in prewarm {dict(prewarm_launches)}; "
+                  f"{len(accepted)} accepted loop dumps")
+            print(f"  prewarm {', '.join('%.3f' % x for x in prewarm_s)} s; stats.json "
+                  f"frames_per_sec {stats['frames_per_sec']}, warmup_s {stats['warmup_s']}, "
+                  f"steady_scans_per_sec {stats['steady_scans_per_sec']}; wall "
+                  f"{1e3 * wall / CLI_SCANS:.3f} ms per scan over the whole call ({wall:.2f} "
+                  f"s, writing the outputs included) [{name_power}]")
+            outside = {k: launches[k] - prewarm_launches[k] for k in launches}
+            if stats["num_scans"] != CLI_SCANS or stats["odometry_failures"] != 0:
+                raise AssertionError(f"CLI run: {stats}")
+            if stats["num_loops"] < 1 or events[0, 1] - events[0, 0] <= 40:
+                raise AssertionError(f"CLI run: loops {events[:, :2].tolist()}, want a first "
+                                     "loop spanning more than 40 keyframes")
+            if stats["num_loops"] != len(events) or int(final["num_loops"]) != len(events):
+                raise AssertionError(f"stats.json counts {stats['num_loops']} loops, final.npz "
+                                     f"{len(events)}")
+            if stats["ate_rmse"] is None or not stats["ate_rmse"] < CLI_ATE_BOUND_FRAC * path:
+                raise AssertionError(f"CLI ATE {stats['ate_rmse']} m is not below "
+                                     f"{CLI_ATE_BOUND_FRAC} of the {path} m path")
+            for name in ("trajectory_tum.txt", "map_points.csv", "final.npz"):
+                if not os.path.exists(os.path.join(out_a, name)):
+                    raise AssertionError(f"the CLI wrote no {name}")
+            if not accepted:
+                raise AssertionError("no loop_*_accepted.npz in --loop_debug_dir")
+            if (outside["cen_peaks"] < CLI_SCANS or outside["sc_corr_multi"] < 1
+                    or outside["nn_dist_multi"] < 1):
+                raise AssertionError(f"CLI run outside prewarm launched {outside}: want K1 at "
+                                     "least once per scan and K2-T, K3-T at least once")
+
+            # resume from the run's first checkpoint
+            first_scans, first_ckpt = saved[0]
+            first_kf = int(np.load(first_ckpt)["num_keyframes"])
+            out_r = os.path.join(tmp, "out_resume")
+            launches, wall, stats, final = run([
+                "--seq_dir", seq_a, "--output_dir", out_r, "--chunk", str(CHUNK),
+                "--resume", first_ckpt, "--use_gps", "true", "--live", "false"])
+            print(f"CLI resume from the checkpoint of scan {first_scans} ({first_kf} keyframes; "
+                  f"checkpoints at scans {[n for n, _ in saved]}: the cadence rounds to the "
+                  f"chunk and a save finishes the chunk in flight): {stats['num_scans']} scans, "
+                  f"{stats['num_keyframes']} keyframes, {stats['num_loops']} loops, ATE "
+                  f"{stats['ate_rmse']} m; launches {launches}; wall {wall:.2f} s")
+            if stats["num_scans"] != CLI_SCANS or stats["num_keyframes"] < first_kf:
+                raise AssertionError(f"resume: {stats}")
+
+            # a second session on the same circuit, attached to the first
+            out_b = os.path.join(tmp, "out_b")
+            launches, wall, stats, final = run([
+                "--seq_dir", seq_b, "--output_dir", out_b,
+                "--prior_session", os.path.join(out_a, "final.npz"), "--live", "false"])
+            start = int(final["session_start"])
+            inter = [tuple(int(x) for x in e[:2]) for e in final["loop_events"]
+                     if e[0] < start <= e[1]]
+            poses = final["graph_poses"][start:int(final["num_keyframes"])]
+            errs = [np.linalg.norm(poses[j, :2, 3] - se2_between_np(gt_a[0], gt_b[j])[:2])
+                    for j in range(len(poses))]
+            print(f"CLI second session ({CLI_SCANS_B} scans, other noise, per scan, "
+                  f"--prior_session): session_start {start}, {len(poses)} keyframes, "
+                  f"inter-session loops {inter[:5]}{' ...' if len(inter) > 5 else ''} "
+                  f"({len(inter)}), rebased {bool(final['rebased'])}, mean distance from the "
+                  f"ground truth in the first session's frame {np.mean(errs):.4f} m (max "
+                  f"{np.max(errs):.4f}); launches {launches}; wall {wall:.2f} s "
+                  f"[{name_power}]")
+            if not inter or not bool(final["rebased"]) or not np.mean(errs) < 1.5:
+                raise AssertionError(f"second session: inter-session loops {inter}, rebased "
+                                     f"{bool(final['rebased'])}, mean error {np.mean(errs)} m")
+    finally:
+        ckpt.save_engine, slam_mod.SlamEngine.prewarm = save_engine, prewarm
+    return dict(total)
+
+
 def main() -> None:
     # 1. the card
     if not torch.cuda.is_available():
@@ -1036,7 +1221,10 @@ def main() -> None:
           f"{STREAMS} streams (make_batched_odometry_step) median {batched_med:.3f}; one call, "
           f"host clock [{name_power}]")
 
-    # 14. kernel times at the main path's shapes
+    # 14. the command line: a chunked run, a resume, a second session
+    cli_launches = cli_path(cfg, name_power)
+
+    # 15. kernel times at the main path's shapes
     for label, b in (("30 rows", prefix), ("all live", live_bank)):
         k2_ms, k2_plain, pa, pb = kernel_vs_plain(
             lambda: sc_corr.sc_shift_distances_cuda(query, b),
@@ -1069,7 +1257,7 @@ def main() -> None:
           f"{k1b_plain:.4f} ms (halves {pa:.4f} / {pb:.4f}), median of {TIMED_RUNS} "
           f"CUDA-event-timed runs each [{name_power}]")
 
-    # 15. device time per launch against the bound, at the main path's shapes
+    # 16. device time per launch against the bound, at the main path's shapes
     fc = cfg.features
     na, nbp = x.shape
     ntaps = cen2019.smoothing_taps(fc).numel()
@@ -1164,7 +1352,8 @@ def main() -> None:
               f"{b_by} ({n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.2f} Mop), share "
               f"{b_ms / dev_ms:.4f}; wrapper-inclusive {ms:.4f} ms; launches odometry "
               f"{odo_n}, SLAM per scan {launches[counter]}, streamed "
-              f"{stream_launches[counter]}, batched {batched_launches[counter]}; device "
+              f"{stream_launches[counter]}, batched {batched_launches[counter]}, CLI "
+              f"{cli_launches[counter]}; device "
               f"work per call (CUDA graph capture): {per_call[0]} kernel, {per_call[1]} other "
               f"nodes [{name_power}]")
         if per_call != (1, 0):
@@ -1179,6 +1368,7 @@ def main() -> None:
             "launches": main[counter], "launches_odometry": odo_n,
             "launches_slam": launches[counter], "launches_streaming": stream_launches[counter],
             "launches_batched": batched_launches[counter],
+            "launches_cli": cli_launches[counter],
             "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })

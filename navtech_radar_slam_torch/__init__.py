@@ -23,9 +23,15 @@ full-SLAM engine (``models.slam.SlamEngine``), per scan and streamed:
                 up to 16 slots: one T-slot search (K2-T) per segment and one
                 T-slot nearest-neighbour launch (K3-T) per ICP iteration
 
+and the command line around them (``cli``: MulRan PNG sequences read by
+``data.mulran`` on the port's own PNG decoder, checkpoint / resume with
+``utils.checkpoint``, multi-session, loop-debug dumps, ``StageTimers``,
+``prewarm``, and the evaluation in ``eval`` and ``utils.metrics``).
+
 The package stands alone: it keeps its own copies of the configuration
-(``config``) and of the data helpers it uses (``data``: the simulator and
-the 4-bit packing), and imports nothing of the JAX package, nor jax.
+(``config``) and of the data helpers it uses (``data``: the simulator, the
+4-bit packing, the MulRan reader and writer), and imports nothing of the
+JAX package, nor jax or OpenCV.
 
 The entry points (``entry``, ``RadarOdometry``, ``SlamEngine``,
 ``PoseGraph``, ``empty_graph``) run on the card unless the caller passes

@@ -21,6 +21,12 @@ SlamEngine``, per scan and streamed:
                   the per-keyframe path where per-scan semantics need a
                   host step (drain, growth, add_gps, in-line refine)
   trajectory() / aggregate_map()                   (drain, then read out)
+  attach_prior_session(ckpt) -> a prior session's keyframes and factors as
+                  a searchable map; its first inter-session loop rebases
+                  the current session into the prior's frame
+  prewarm()        -> runs every program of the streamed path once on
+                  scratch copies (kernel libraries loaded, solver buckets,
+                  segment buckets), the engine state untouched
 
 The engine keeps its banks and graph on ``device`` and writes them in place
 (the JAX engine returns new arrays; in place saves copying the 4096-row
@@ -35,15 +41,19 @@ candidate's ``found`` flag, so that no ICP runs without a candidate (the
 JAX engine's ``lax.cond``).  Streamed: one fetch per chunk, and inside a
 segment no read but the T-slot ICP's "every slot converged" check.
 
-Not ported yet: prewarm, attach_prior_session / _rebase_session, the
-loop-debug dumps, the mesh paths and StageTimers.
+``timers`` (a ``utils.profiling.StageTimers``) times the JAX engine's
+stages at the same sites; ``loop_debug_dir`` makes every loop decision
+that found a candidate write ``loop_<k>_<accepted|rejected>.npz``.  Not
+ported yet: the mesh paths.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
+import os
 import warnings
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -56,6 +66,7 @@ from navtech_radar_slam_torch.models.odometry import (RadarOdometry, extract_sca
                                                       make_odometry_sequence)
 from navtech_radar_slam_torch.ops import icp as icp_ops
 from navtech_radar_slam_torch.ops import scancontext as sc_ops
+from navtech_radar_slam_torch.ops.kernels import cen_peaks, nn_dist, sc_corr
 from navtech_radar_slam_torch.ops.voxel import voxel_dedup_mask
 from navtech_radar_slam_torch.utils import geometry as geo
 from navtech_radar_slam_torch.utils.device import DEFAULT_DEVICE, resolve_device
@@ -361,6 +372,35 @@ def _kf_segment_body(cfg: SlamConfig, T: int, with_detect: bool, clouds, clouds_
     return clouds, clouds_valid, bank, ring_keys, g, cands, ress, last_pose
 
 
+def _debug_submap(cfg: SlamConfig, clouds, clouds_valid, poses_se3, center: int, num_kf: int,
+                  k: int) -> torch.Tensor:
+    """The loop-debug artifact's clouds as ONE float32 vector [query xy |
+    query valid | submap xy | submap valid], so a dump reads the device
+    once: keyframe k's cloud and the ±submap_half_size submap around
+    ``center`` rendered from the given poses."""
+    sub_xy, sub_valid = _build_submap(
+        clouds, clouds_valid, geo.se3_to_se2(poses_se3), center, num_kf,
+        cfg.icp.submap_half_size, cfg.icp.max_target_points, cfg.icp.submap_voxel_size)
+    f32 = torch.float32
+    return torch.cat([clouds[k].reshape(-1), clouds_valid[k].to(f32), sub_xy.reshape(-1),
+                      sub_valid.to(f32)])
+
+
+def _render_map(clouds, clouds_valid, poses_se3, num_kf: int, stride: int) -> torch.Tensor:
+    """Every ``stride``-th of the first ``num_kf`` keyframe clouds in the
+    world frame of its pose: the valid points, (P, 2)."""
+    idx = torch.arange(0, num_kf, stride, device=clouds.device)
+    pts = geo.se2_apply(geo.se3_to_se2(poses_se3[idx]), clouds[idx]).reshape(-1, 2)
+    return pts[clouds_valid[idx].reshape(-1)]
+
+
+def _pack_odo(rels: torch.Tensor, oks: torch.Tensor, coast: torch.Tensor) -> torch.Tensor:
+    """A chunk's odometry results as one float32 vector [rels | oks | coast]
+    on the device, fetched with the pending decisions in one read."""
+    f32 = torch.float32
+    return torch.cat([rels.reshape(-1).to(f32), oks.to(f32), coast.reshape(1).to(f32)])
+
+
 def _pack_decision(cand: sc_ops.LoopCandidate, res: icp_ops.IcpResult) -> torch.Tensor:
     """One float32 vector [found, accepted, idx, dist, fitness, rel(3), yaw]
     on the device, each leaf raveled (T of each for a segment's (T,)
@@ -424,8 +464,26 @@ class SlamEngine:
         self._twist_dev: Optional[torch.Tensor] = None
         self._coast_dev: Optional[torch.Tensor] = None
         self._seq = None
-        #: first keyframe of the current session (0: single session)
+        #: first keyframe of the current session (>0 after a prior session
+        #: was attached: the graph has no odometry factor across it)
         self.session_start = 0
+        #: False while an attached prior session awaits the first
+        #: inter-session loop, which rebases the current session
+        self._rebased = True
+        #: optional utils.profiling.StageTimers: the per-stage split the CLI
+        #: reports, under the JAX engine's stage names
+        self.timers = None
+        #: when set, every fetched loop decision that found a candidate
+        #: writes loop_<k>_<accepted|rejected>.npz here (_dump_loop_debug)
+        self.loop_debug_dir: Optional[str] = None
+
+    @contextlib.contextmanager
+    def _stage(self, name: str):
+        if self.timers is None:
+            yield
+        else:
+            with self.timers.time(name):
+                yield
 
     def _make_solvers(self):
         # fast per-keyframe refine (one GN iteration) vs full solve after
@@ -433,6 +491,82 @@ class SlamEngine:
         self._solve_fast = pg.make_bucketed_solver(
             dataclasses.replace(self.cfg.pgo, gn_iters=1))
         self._solve_full = pg.make_bucketed_solver(self.cfg.pgo)
+
+    # -- multi-session ------------------------------------------------------
+
+    def attach_prior_session(self, checkpoint_path: str):
+        """Load a previous session's checkpoint (``utils.checkpoint.
+        save_engine``'s file, or the JAX package's) as a searchable prior
+        map, before the first scan.
+
+        The prior keyframes become graph nodes with their clouds, bank rows
+        and ring keys; the odometry factors are derived again from the
+        prior's optimised poses, and its loop and GPS factors (with its
+        altitude datum) are carried over, so the prior stays rigid under the
+        merged solve.  All of it is written with batched tensor ops.  The
+        sessions are joined by the first accepted inter-session loop, which
+        rebases the current session into the prior's frame
+        (``_rebase_session``)."""
+        if self.num_keyframes != 0:
+            raise RuntimeError("attach_prior_session before processing scans")
+        z = np.load(checkpoint_path, allow_pickle=False)
+        n = int(z["num_keyframes"])
+        cap = self.cfg.keyframes.max_keyframes
+        if n >= cap:
+            raise RuntimeError(f"prior session ({n} kf) exceeds capacity {cap}")
+        n_loops = int(z["num_loops"]) if "num_loops" in z else 0
+        if self.graph.num_loops + n_loops >= self.cfg.pgo.max_loop_edges:
+            raise RuntimeError(f"prior session's {n_loops} loop factors exceed "
+                               f"max_loop_edges {self.cfg.pgo.max_loop_edges}")
+
+        def dev(name, rows, dtype=torch.float32):
+            return torch.as_tensor(np.asarray(z[name][:rows]), dtype=dtype, device=self.device)
+
+        self.clouds[:n] = dev("clouds", n)
+        self.clouds_valid[:n] = dev("clouds_valid", n, torch.bool)
+        self.bank[:n] = dev("bank", n)
+        self.ring_keys[:n] = dev("ring_keys", n)
+        self.kf_times = [float(x) for x in np.asarray(z["kf_times"][:n])]
+        poses = dev("graph_poses", n)
+        self.odom_poses = list(geo.se3_to_se2(poses).cpu().numpy().astype(np.float64))
+
+        g = self.graph.g
+        g.poses[:n] = poses
+        g.odom_meas[1:n] = geo.se3_between(poses[:-1], poses[1:])
+        g.odom_valid[1:n] = True
+        if n_loops:
+            # checkpoints from before loop-factor persistence carry no
+            # graph_loop_* keys (num_loops is then absent too)
+            g.loop_i[:n_loops] = dev("graph_loop_i", n_loops, torch.int64)
+            g.loop_j[:n_loops] = dev("graph_loop_j", n_loops, torch.int64)
+            g.loop_meas[:n_loops] = dev("graph_loop_meas", n_loops)
+            g.loop_valid[:n_loops] = True
+        if "graph_gps_valid" in z and np.asarray(z["graph_gps_valid"][:n]).any():
+            g.gps_meas[:n] = dev("graph_gps_meas", n)
+            g.gps_valid[:n] = dev("graph_gps_valid", n, torch.bool)
+        self.graph.g = g._replace(num_nodes=torch.tensor(n, device=self.device))
+        self.graph.num_nodes = n
+        self.graph.num_loops = n_loops
+        # the new session's fixes stay in the prior's relative-altitude frame
+        if "gps_alt_offset" in z and not np.isnan(float(z["gps_alt_offset"])):
+            self.gps_alt_offset = float(z["gps_alt_offset"])
+        self.num_keyframes = n
+        self.session_start = n
+        self._rebased = False
+        self._cur_pose = None
+        self._cur_pose_dev = None
+
+    def _rebase_session(self, prior_idx: int, curr_idx: int, loop_meas: np.ndarray):
+        """The first inter-session loop: move the whole current session
+        rigidly so that the loop's residual starts near zero (a robust solve
+        cannot pull a chain across a frame-sized gap on its own)."""
+        poses = self.graph.g.poses
+        meas = torch.as_tensor(loop_meas, dtype=poses.dtype, device=poses.device)
+        target = geo.se3_mul(poses[prior_idx], meas)
+        align = geo.se3_mul(target, geo.se3_inv(poses[curr_idx]))
+        s, n = self.session_start, self.num_keyframes
+        poses[s:n] = geo.se3_mul(align, poses[s:n])
+        self._rebased = True
 
     # -- per-scan entry -----------------------------------------------------
 
@@ -554,12 +688,12 @@ class SlamEngine:
         if coast_in is None:
             coast_in = torch.as_tensor(odo._coast, dtype=torch.int64, device=self.device)
         self.dispatch_counts["odometry_seq"] += 1
-        (odo.prev, self._twist_dev, self._coast_dev, rels, oks, _, xys,
-         valids) = self._seq(powers, az, odo.prev, twist_in, coast_in,
-                             ray_valids=ray_valids, packed=packed)
-        # packed now, right behind the chunk's odometry on the stream
-        packed_odo = torch.cat([rels.reshape(-1).to(torch.float32), oks.to(torch.float32),
-                                self._coast_dev.reshape(1).to(torch.float32)])
+        with self._stage("odometry_seq"):
+            (odo.prev, self._twist_dev, self._coast_dev, rels, oks, _, xys,
+             valids) = self._seq(powers, az, odo.prev, twist_in, coast_in,
+                                 ray_valids=ray_valids, packed=packed)
+            # packed now, right behind the chunk's odometry on the stream
+            packed_odo = _pack_odo(rels, oks, self._coast_dev)
         self._inflight.append((n_scans, timestamps, seeded, fresh_start, packed_odo,
                                xys, valids))
 
@@ -578,7 +712,8 @@ class SlamEngine:
         pend = [i for i, (_, _, pk) in enumerate(self._pending_loops)
                 if isinstance(pk, torch.Tensor)]
         parts = [packed_odo] + [self._pending_loops[i][2] for i in pend]
-        host = torch.cat(parts).cpu().numpy()
+        with self._stage("odo_fetch"):
+            host = torch.cat(parts).cpu().numpy()
         sizes = np.cumsum([x.numel() for x in parts])[:-1]
         p, *decisions = np.split(host, sizes)
         for i, h in zip(pend, decisions):
@@ -713,6 +848,100 @@ class SlamEngine:
             self._dispatch_segment(seg, kfs, xys, valids, gps_alts)
             idx += len(seg)
 
+    def prewarm(self, expected_keyframes: int, chunk: int = 16,
+                per_scan_azimuths: bool = False, full: bool = True,
+                live_outputs: bool = False, pack4: bool = False):
+        """Run every program of the streamed path once before real scans
+        arrive, one after another, leaving the engine state as it was bit
+        for bit: the writes go to scratch copies of the banks and graph.
+
+        Eager PyTorch compiles nothing, so what this warms is what a first
+        call pays: on the card the three kernel libraries (built by nvcc on
+        a cold ``_build/``, then loaded), the CUDA context, cuBLAS handles
+        and the caching allocator's blocks.  It runs the odometry seed and
+        chunk sequence on ``chunk`` zero scans (uint8, or the 4-bit wire
+        format with ``pack4``; with ``per_scan_azimuths`` per-scan azimuths
+        and ray validity, as the CLI feeds), and with ``full`` every solver
+        bucket up to ``expected_keyframes + chunk`` nodes; the segment
+        buckets up to ``chunk`` slots with no active slot, the packers, the
+        per-keyframe step, the map render with ``live_outputs`` and the
+        debug-submap render when ``loop_debug_dir`` is set.  ``full=False``
+        runs only what depends on the chunk length (for a last, shorter
+        chunk)."""
+        c = self.cfg
+        dev = self.device
+        if dev.type == "cuda":
+            for kern in (cen_peaks, sc_corr, nn_dist):
+                kern.LIBRARY.start()   # nvcc for all three at once
+            for kern in (cen_peaks, sc_corr, nn_dist):
+                kern.LIBRARY.load()
+        k_feats = c.features.max_features
+        na, nb = c.radar.num_azimuths, c.radar.padded_range_bins
+        if pack4:
+            nb //= 2
+        clouds, clouds_valid, bank, ring_keys = (
+            x.clone() for x in (self.clouds, self.clouds_valid, self.bank, self.ring_keys))
+        g = pg.GraphArrays(*(x.clone() for x in self.graph.g))
+
+        if full:
+            cap = min(expected_keyframes + chunk, c.pgo.max_nodes)
+            nodes, n_loops = 64, max(self.graph.num_loops, 1)
+            while True:
+                for solver in (self._solve_fast, self._solve_full):
+                    solver(g, nodes, n_loops)
+                if nodes >= cap:
+                    break
+                nodes = min(2 * nodes, cap)
+
+        powers = torch.zeros((chunk, na, nb), dtype=torch.uint8, device=dev)
+        az = self.odometry._az_dev
+        ray_valids = None
+        if per_scan_azimuths:
+            az = az.expand(chunk, na)
+            ray_valids = torch.ones((chunk, na), dtype=torch.bool, device=dev)
+        if self._seq is None:
+            self._seq = make_odometry_sequence(c, return_features=True)
+        carry = extract_scan_features(powers[0], az[0] if per_scan_azimuths else az, c,
+                                      None if ray_valids is None else ray_valids[0], pack4)
+        out = self._seq(powers, az, carry, torch.zeros(3, device=dev),
+                        torch.zeros((), dtype=torch.int64, device=dev),
+                        ray_valids=ray_valids, packed=pack4)
+        _pack_odo(out[3], out[4], out[2])
+
+        xys = torch.zeros((chunk, k_feats, 2), device=dev)
+        valids = torch.zeros((chunk, k_feats), dtype=torch.bool, device=dev)
+        cap_rows = min(c.keyframes.max_keyframes, c.pgo.max_nodes)
+        top = self._segment_bucket(chunk)
+        tp = 1
+        while True:
+            tp = min(tp, top)
+            # no active slot: every row the segment writes is scratch
+            k0 = min(self.num_keyframes, cap_rows - tp)
+            zeros3 = torch.zeros((tp, 3), device=dev)
+            for det in ((True, False) if c.do_slam else (False,)):
+                self._get_segment(tp, det)(
+                    clouds, clouds_valid, bank, ring_keys, g, k0, 0,
+                    torch.zeros(tp, dtype=torch.int64, device=dev), xys, valids, zeros3,
+                    zeros3, [False] * tp, torch.zeros(tp, device=dev),
+                    torch.zeros(tp, dtype=torch.bool, device=dev), self.session_start)
+            _pack_decision(_empty_candidate(dev, (tp,)), _empty_icp_result(dev, (tp,)))
+            if tp >= top:
+                break
+            tp *= 2
+        _pack_decision(_empty_candidate(dev), _empty_icp_result(dev))
+        if full and self.loop_debug_dir is not None:
+            _debug_submap(c, clouds, clouds_valid, g.poses, 0, 1, 0)
+        if full and live_outputs:
+            _render_map(clouds, clouds_valid, g.poses, 1, c.map.keyframe_stride)
+        if full:
+            # the per-keyframe path (first keyframe, GPS, growth)
+            zero3 = torch.zeros(3, device=dev)
+            _kf_step_body(c, clouds, clouds_valid, bank, ring_keys, g,
+                          min(self.num_keyframes, cap_rows - 1), xys[0], valids[0], zero3,
+                          zero3, False, False, self.session_start)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
     @staticmethod
     def _segment_bucket(m: int) -> int:
         """Segment slot counts: powers of two up to 16 (the JAX engine's
@@ -764,11 +993,12 @@ class SlamEngine:
         def dev(x):
             return torch.as_tensor(x, device=self.device)
 
-        (self.clouds, self.clouds_valid, self.bank, self.ring_keys, self.graph.g, cands,
-         ress, pose_dev) = prog(
-            self.clouds, self.clouds_valid, self.bank, self.ring_keys, self.graph.g, k0, m,
-            dev(sel), xys, valids, dev(odo_arr), dev(prev_arr), has, dev(gps_arr),
-            dev(gps_has), self.session_start)
+        with self._stage("kf_segment"):
+            (self.clouds, self.clouds_valid, self.bank, self.ring_keys, self.graph.g, cands,
+             ress, pose_dev) = prog(
+                self.clouds, self.clouds_valid, self.bank, self.ring_keys, self.graph.g, k0,
+                m, dev(sel), xys, valids, dev(odo_arr), dev(prev_arr), has, dev(gps_arr),
+                dev(gps_has), self.session_start)
         self.num_keyframes = k0 + m
         self.graph.num_nodes = k0 + m
         self.last_kf_pose = np.asarray(prev_pose, np.float64).copy()
@@ -806,13 +1036,14 @@ class SlamEngine:
         )
         self.dispatch_counts["kf_step"] += 1
         f32 = dict(dtype=torch.float32, device=self.device)
-        (self.clouds, self.clouds_valid, self.bank, self.ring_keys, self.graph.g,
-         _, cand, res) = _kf_step_body(
-            c, self.clouds, self.clouds_valid, self.bank, self.ring_keys,
-            self.graph.g, k, xy, valid, torch.tensor(odo_pose, **f32),
-            torch.tensor(self.last_kf_pose, **f32), has_odom, do_detect,
-            self.session_start)
-        pose_dev = geo.se3_to_se2(self.graph.g.poses[k])
+        with self._stage("kf_step"):
+            (self.clouds, self.clouds_valid, self.bank, self.ring_keys, self.graph.g,
+             _, cand, res) = _kf_step_body(
+                c, self.clouds, self.clouds_valid, self.bank, self.ring_keys,
+                self.graph.g, k, xy, valid, torch.tensor(odo_pose, **f32),
+                torch.tensor(self.last_kf_pose, **f32), has_odom, do_detect,
+                self.session_start)
+            pose_dev = geo.se3_to_se2(self.graph.g.poses[k])
         self.graph.num_nodes = k + 1
         self.last_kf_pose = odo_pose.copy()
         if self._pending_gps is not None and c.pgo.use_gps:
@@ -844,20 +1075,44 @@ class SlamEngine:
         self._cur_pose_dev = pose_dev
         self._cur_pose = None
 
+    def _dump_loop_debug(self, k: int, prev_idx: int, accepted: bool, sc_dist: float,
+                         sc_yaw: float, fitness: float, rel2: np.ndarray):
+        """Write loop_<k>_<verdict>.npz into ``loop_debug_dir``: keyframe k's
+        cloud (the ICP query), the ±half submap around ``prev_idx``, and the
+        decision scalars, with the JAX engine's fields (the offline form of
+        the reference's /loop_scan_local and /loop_submap_local).  The
+        submap is rendered from the current optimised poses."""
+        p = _debug_submap(self.cfg, self.clouds, self.clouds_valid, self.graph.g.poses,
+                          prev_idx, self.num_keyframes, k).cpu().numpy()
+        n_feats = self.clouds.shape[1]
+        n_sub = self.cfg.icp.max_target_points
+        q_xy = p[:2 * n_feats].reshape(n_feats, 2)
+        q_valid = p[2 * n_feats:3 * n_feats] > 0.5
+        sub_xy = p[3 * n_feats:3 * n_feats + 2 * n_sub].reshape(n_sub, 2)
+        sub_valid = p[3 * n_feats + 2 * n_sub:] > 0.5
+        verdict = "accepted" if accepted else "rejected"
+        np.savez(os.path.join(self.loop_debug_dir, f"loop_{k:05d}_{verdict}.npz"),
+                 prev_idx=prev_idx, curr_idx=k, accepted=accepted, sc_dist=sc_dist,
+                 sc_yaw_init=sc_yaw, icp_fitness=fitness, rel_pose=np.asarray(rel2),
+                 query_xy=q_xy[q_valid], submap_xy=sub_xy[sub_valid])
+
     def _flush_pending_loop(self):
         """Drain the deferred decision queue in order: one fetch for every
         queued decision not fetched yet (a finish_chunk may have brought
-        some), add every accepted loop factor, then ONE full refine if any
-        loop was added (a fast one otherwise)."""
+        some), dump every decision that found a candidate when
+        ``loop_debug_dir`` is set, add every accepted loop factor (the first
+        inter-session one rebases the current session), then ONE full refine
+        if any loop was added (a fast one otherwise)."""
         if not self._pending_loops:
             return
         pending, self._pending_loops = self._pending_loops, []
         self._pending_count = 0
         dev = [pk for _, _, pk in pending if isinstance(pk, torch.Tensor)]
         self.dispatch_counts["decision_fetch"] += len(dev)
-        if dev:
-            host = torch.cat(dev).cpu().numpy()
-            fetched = iter(np.split(host, np.cumsum([pk.numel() for pk in dev])[:-1]))
+        with self._stage("loop_fetch"):
+            if dev:
+                host = torch.cat(dev).cpu().numpy()
+                fetched = iter(np.split(host, np.cumsum([pk.numel() for pk in dev])[:-1]))
         decisions = []   # (k, packed vector, slot)
         for ks, slots, pk in pending:
             p = next(fetched) if isinstance(pk, torch.Tensor) else pk
@@ -867,11 +1122,20 @@ class SlamEngine:
         for k, p, s in decisions:
             t = len(p) // 9
             found, accepted, idx, dist, fitness = p[s:5 * t:t]
-            if not (found > 0.5 and accepted > 0.5):
+            if not found > 0.5:
                 continue
             prev_idx = int(idx)
             rel2 = np.asarray(p[5 * t + 3 * s:5 * t + 3 * s + 3], np.float64)
-            self.graph.add_loop(prev_idx, k, geo.se2_to_se3_np(rel2).astype(np.float32))
+            if self.loop_debug_dir is not None:
+                with self._stage("loop_debug_dump"):
+                    self._dump_loop_debug(k, prev_idx, bool(accepted > 0.5), float(dist),
+                                          float(p[8 * t + s]), float(fitness), rel2)
+            if not accepted > 0.5:
+                continue
+            meas = geo.se2_to_se3_np(rel2).astype(np.float32)
+            if not self._rebased and prev_idx < self.session_start <= k:
+                self._rebase_session(prev_idx, k, meas)
+            self.graph.add_loop(prev_idx, k, meas)
             self.loops.append(LoopEvent(prev_idx, k, float(dist), float(fitness), rel2))
             solved = True
         self._refine_graph(full=solved)
@@ -886,7 +1150,8 @@ class SlamEngine:
             return
         solver = self._solve_full if full else self._solve_fast
         self.dispatch_counts["pgo_full" if full else "pgo_fast"] += 1
-        self.graph.g = solver(self.graph.g, self.graph.num_nodes, self.graph.num_loops)
+        with self._stage("pgo_refine_full" if full else "pgo_refine_fast"):
+            self.graph.g = solver(self.graph.g, self.graph.num_nodes, self.graph.num_loops)
 
     # -- outputs ------------------------------------------------------------
 
@@ -918,7 +1183,8 @@ class SlamEngine:
         if drain:
             self.drain_chunks()
             self._flush_pending_loop()
-        return self.graph.poses()
+        with self._stage("path_render"):
+            return self.graph.poses()
 
     def aggregate_map(self, voxel: Optional[float] = None, stride: Optional[int] = None,
                       drain: bool = True) -> np.ndarray:
@@ -934,10 +1200,9 @@ class SlamEngine:
             return np.zeros((0, 2))
         if drain:
             self._flush_pending_loop()
-        idx = torch.arange(0, self.num_keyframes, stride, device=self.device)
-        se2 = geo.se3_to_se2(self.graph.g.poses[idx])
-        pts = geo.se2_apply(se2, self.clouds[idx]).reshape(-1, 2)
-        pts = pts[self.clouds_valid[idx].reshape(-1)].cpu().numpy()
+        with self._stage("map_render"):
+            pts = _render_map(self.clouds, self.clouds_valid, self.graph.g.poses,
+                              self.num_keyframes, stride).cpu().numpy()
         if voxel > 0 and len(pts):
             keys = np.floor(pts / voxel).astype(np.int64)
             _, uniq = np.unique(keys, axis=0, return_index=True)

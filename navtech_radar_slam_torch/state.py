@@ -15,12 +15,12 @@ Layout of the carry dict::
      "pose": (3,) f64, "last_rel": (3,) f64,
      "coast": int, "num_scans": int, "num_failures": int}
 
-The engine state uses the key names of the JAX checkpoint
+The engine state uses the key names and dtypes of the JAX checkpoint
 (``navtech_radar_slam_tpu/utils/checkpoint.py``: ``clouds``, ``bank``,
 ``graph_poses``, ``num_loops``, ...) plus ``"odometry"``, the carry above.
-A state without ``"odometry"`` (a JAX checkpoint) resumes as the JAX engine
-does: the first scan after the load re-seeds the odometry.  Reading and
-writing the ``.npz`` file is not ported yet.
+A state without ``"odometry"`` (a checkpoint file of either package)
+resumes as the JAX engine does: the first scan after the load re-seeds the
+odometry.  ``utils.checkpoint`` reads and writes the ``.npz`` file.
 
 The configuration needs no conversion: the port's ``config.SlamConfig``
 has the JAX package's fields and defaults, and ``configs/*.json`` load alike
@@ -97,6 +97,9 @@ def slam_state_to_numpy(eng: "SlamEngine") -> Dict:
     d = {name: getattr(eng, name).cpu().numpy()
          for name in ("clouds", "clouds_valid", "bank", "ring_keys")}
     d.update({f"graph_{name}": getattr(g, name).cpu().numpy() for name in _GRAPH_KEYS})
+    # the JAX graph's loop indices are int32
+    d["graph_loop_i"] = d["graph_loop_i"].astype(np.int32)
+    d["graph_loop_j"] = d["graph_loop_j"].astype(np.int32)
     d.update(
         kf_times=np.asarray(eng.kf_times, np.float64),
         odom_poses=np.asarray(eng.odom_poses, np.float64).reshape(-1, 3),
@@ -107,7 +110,7 @@ def slam_state_to_numpy(eng: "SlamEngine") -> Dict:
         odo_last_rel=np.asarray(eng.odometry.last_rel, np.float64).copy(),
         num_scans=eng.num_scans,
         session_start=eng.session_start,
-        rebased=True,
+        rebased=eng._rebased,
         gps_alt_offset=np.nan if eng.gps_alt_offset is None else eng.gps_alt_offset,
         graph_num_nodes=eng.graph.num_nodes,
         num_loops=eng.graph.num_loops,
@@ -120,9 +123,9 @@ def slam_state_to_numpy(eng: "SlamEngine") -> Dict:
 
 def load_slam_state(eng: "SlamEngine", d: Dict) -> None:
     """Restore an engine state given as numpy (``slam_state_to_numpy``'s
-    layout, or the JAX engine's checkpoint fields).  The arrays must match
-    the engine's capacities; a prior-session state that still awaits its
-    rebase is not supported yet."""
+    layout, or the fields of a checkpoint file).  The arrays must match the
+    engine's capacities (``utils.checkpoint.load_engine`` builds the engine
+    from the file's config, so a grown engine reloads at its capacity)."""
     from navtech_radar_slam_torch.models.slam import LoopEvent
 
     c = eng.cfg
@@ -132,9 +135,6 @@ def load_slam_state(eng: "SlamEngine", d: Dict) -> None:
         if np.asarray(d[key]).shape[0] != cap:
             raise ValueError(f"load_slam_state: {key} holds {np.asarray(d[key]).shape[0]} "
                              f"rows, the engine's capacity is {cap}")
-    if not bool(d.get("rebased", True)):
-        raise ValueError("load_slam_state: a prior-session state awaiting its rebase "
-                         "is not supported")
 
     def dev(x, dtype=None):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=eng.device).clone()
@@ -152,12 +152,14 @@ def load_slam_state(eng: "SlamEngine", d: Dict) -> None:
     eng.graph.num_nodes = int(d["graph_num_nodes"])
     eng.graph.num_loops = int(d["num_loops"])
     eng.kf_times = [float(x) for x in np.asarray(d["kf_times"])]
-    eng.odom_poses = [p.copy() for p in np.asarray(d["odom_poses"], np.float64)]
+    if "odom_poses" in d:
+        eng.odom_poses = [p.copy() for p in np.asarray(d["odom_poses"], np.float64)]
     eng.num_keyframes = int(d["num_keyframes"])
     eng.movement_accum = float(d["movement_accum"])
     eng.last_kf_pose = np.asarray(d["last_kf_pose"], np.float64).copy()
     eng.num_scans = int(d["num_scans"])
     eng.session_start = int(d.get("session_start", 0))
+    eng._rebased = bool(d.get("rebased", True))
     off = float(d.get("gps_alt_offset", np.nan))
     eng.gps_alt_offset = None if np.isnan(off) else off
     eng.loops = [LoopEvent(int(r[0]), int(r[1]), float(r[2]), float(r[3]), None)

@@ -1,4 +1,5 @@
-"""The port imports torch, never jax, and nothing of the JAX package."""
+"""The port imports torch, never jax, nothing of the JAX package, and
+neither OpenCV nor matplotlib."""
 
 import subprocess
 import sys
@@ -11,9 +12,16 @@ MODULES = [
     "navtech_radar_slam_torch.config",
     "navtech_radar_slam_torch.data",
     "navtech_radar_slam_torch.data.packing",
+    "navtech_radar_slam_torch.data.png",
+    "navtech_radar_slam_torch.data.mulran",
+    "navtech_radar_slam_torch.data.make_sequence",
     "navtech_radar_slam_torch.data.synthetic",
     "navtech_radar_slam_torch.utils.device",
     "navtech_radar_slam_torch.utils.geometry",
+    "navtech_radar_slam_torch.utils.checkpoint",
+    "navtech_radar_slam_torch.utils.metrics",
+    "navtech_radar_slam_torch.utils.profiling",
+    "navtech_radar_slam_torch.utils.viz",
     "navtech_radar_slam_torch.ops.cen2019",
     "navtech_radar_slam_torch.ops.features",
     "navtech_radar_slam_torch.ops.registration",
@@ -29,6 +37,8 @@ MODULES = [
     "navtech_radar_slam_torch.models.slam",
     "navtech_radar_slam_torch.state",
     "navtech_radar_slam_torch.entry",
+    "navtech_radar_slam_torch.eval",
+    "navtech_radar_slam_torch.cli",
 ]
 
 
@@ -41,17 +51,20 @@ def _run(code: str) -> str:
 
 def test_import_leaves_jax_out():
     """A fresh interpreter that imports every module of the port has no jax
-    module loaded and no module of the JAX package."""
+    module loaded, no module of the JAX package, and neither cv2 nor
+    matplotlib."""
     out = _run(
         "import importlib, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib')))\n"
         "print(sorted(m for m in sys.modules if m.startswith('navtech_radar_slam_tpu')))\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('cv2', 'matplotlib')))\n"
     )
-    jax_mods, tpu_mods = out.strip().splitlines()
+    jax_mods, tpu_mods, image_mods = out.strip().splitlines()
     assert jax_mods == "[]", jax_mods
     assert tpu_mods == "[]", tpu_mods
+    assert image_mods == "[]", image_mods
 
 
 def test_import_turns_tf32_off():
