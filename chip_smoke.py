@@ -72,8 +72,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
      MulRan sequences that the port's make_sequence writes into a temporary
      directory (the JAX rehearsal: 70 motion-distorted full-size scans of
      circuit_trajectory(71, radius=12.0, speed=6.0), 1.4 laps, with gps.csv;
-     and 20 scans of the same circuit with other noise, seed=5).  Prints the
-     PNG decode ms per scan (median).  Every counter is reset just before
+     and 20 scans of the same circuit with other noise, seed=5).  First the
+     native scan loader (navtech_radar_slam_torch/runtime/src/
+     radar_loader.cc): g++ builds it (the command line and its time are
+     printed), and the 70 scans are read through decode_png_native, through
+     NativeRadarLoader(raw_u8=True, num_workers=2) and with the Python
+     decoder (data/png.py + decode_polar_scan), every array equal across the
+     three; prints the median, min and max ms per scan of the two decoders
+     on one thread, taken in turns.  Every CLI call must read with the
+     native loader (the banner's "native loader"), and prints the wait in
+     NativeRadarLoader.__next__ per scan.  Every counter is reset just before
      each CLI call and read just after.  (a) --chunk 16 --prewarm true
      --pack4 true --checkpoint_every 35 --loop_debug_dir --use_gps true
      --live true on the 70 scans at SlamConfig(): 70 scans, no odometry
@@ -865,10 +873,9 @@ def cli_path(cfg: SlamConfig, name_power: str) -> dict:
     run's final.npz.  Every launch counter is reset just before each CLI call
     and read just after; returns each kernel's launches summed over the
     three calls."""
-    from navtech_radar_slam_torch import cli
+    from navtech_radar_slam_torch import cli, runtime
     from navtech_radar_slam_torch.data.make_sequence import write_sequence
     from navtech_radar_slam_torch.data.mulran import MulranRadarDataset
-    from navtech_radar_slam_torch.data.png import read_png
     from navtech_radar_slam_torch.utils import checkpoint as ckpt
     from navtech_radar_slam_torch.utils.metrics import path_length
 
@@ -876,6 +883,20 @@ def cli_path(cfg: SlamConfig, name_power: str) -> dict:
     saved = []                     # (scans, path) of each checkpoint the CLI wrote
     prewarm_s, prewarm_launches = [], defaultdict(int)
     save_engine, prewarm = ckpt.save_engine, slam_mod.SlamEngine.prewarm
+    scan_stream, loader_next = cli.scan_stream, runtime.NativeRadarLoader.__next__
+    kinds = []                     # the scan source of each CLI call
+    waits = []                     # ms in NativeRadarLoader.__next__ per scan, per call
+
+    def recorded_stream(args, cfg):
+        stream, n, kind = scan_stream(args, cfg)
+        kinds.append(kind)
+        return stream, n, kind
+
+    def timed_next(loader):
+        t0 = time.perf_counter()
+        scan = loader_next(loader)
+        waits[-1].append(1e3 * (time.perf_counter() - t0))
+        return scan
 
     def keep_checkpoints(eng, path):
         save_engine(eng, path)
@@ -896,6 +917,7 @@ def cli_path(cfg: SlamConfig, name_power: str) -> dict:
         """One CLI call: (launches, wall s, stats.json, final.npz)."""
         out = argv[argv.index("--output_dir") + 1]
         torch.cuda.synchronize()
+        waits.append([])
         reset_counts()
         t0 = time.perf_counter()
         if cli.main(argv + ["--device", "cuda", "--save_plot", "false"]) != 0:
@@ -903,6 +925,12 @@ def cli_path(cfg: SlamConfig, name_power: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_counts()
+        if kinds[-1] != "native":
+            raise AssertionError(f"the CLI read with the {kinds[-1]} loader, not the native one")
+        w = waits[-1]
+        print(f"  native loader: wait in next() median {np.median(w):.3f} ms per scan over "
+              f"{len(w)} scans (first {w[0]:.3f}, after the first median "
+              f"{np.median(w[1:]):.3f} / max {max(w[1:]):.3f} ms), host clock [{name_power}]")
         for name, n in launches.items():
             total[name] += n
         with open(os.path.join(out, "stats.json")) as f:
@@ -911,23 +939,18 @@ def cli_path(cfg: SlamConfig, name_power: str) -> dict:
 
     ckpt.save_engine = keep_checkpoints
     slam_mod.SlamEngine.prewarm = timed_prewarm
+    cli.scan_stream = recorded_stream
     try:
         with tempfile.TemporaryDirectory() as tmp:
             seq_a, seq_b = os.path.join(tmp, "seq_a"), os.path.join(tmp, "seq_b")
             t0 = time.perf_counter()
             gt_a = write_sequence(seq_a, num_scans=CLI_SCANS, radius=12.0, speed=6.0, gps=True)
             gt_b = write_sequence(seq_b, num_scans=CLI_SCANS_B, radius=12.0, speed=6.0, seed=5)
-            write_s = time.perf_counter() - t0
-            ds = MulranRadarDataset(seq_a, cfg.radar, raw_u8=True)
-            decode_ms = []
-            for name in ds.scan_files:
-                t0 = time.perf_counter()
-                read_png(os.path.join(ds.scan_dir, name))
-                decode_ms.append(1e3 * (time.perf_counter() - t0))
             print(f"CLI sequences: {CLI_SCANS} + {CLI_SCANS_B} scans written by make_sequence "
-                  f"in {write_s:.1f} s; PNG decode (data.png, zlib + numpy) median "
-                  f"{np.median(decode_ms):.3f} ms per scan (min {min(decode_ms):.3f}, max "
-                  f"{max(decode_ms):.3f}) over {len(decode_ms)} scans, host clock")
+                  f"in {time.perf_counter() - t0:.1f} s")
+            ds = MulranRadarDataset(seq_a, cfg.radar, raw_u8=True)
+            loader_phase(ds, cfg, name_power)
+            runtime.NativeRadarLoader.__next__ = timed_next
 
             # the chunked run
             out_a, dumps = os.path.join(tmp, "out_a"), os.path.join(tmp, "loops")
@@ -1011,7 +1034,56 @@ def cli_path(cfg: SlamConfig, name_power: str) -> dict:
                                      f"{bool(final['rebased'])}, mean error {np.mean(errs)} m")
     finally:
         ckpt.save_engine, slam_mod.SlamEngine.prewarm = save_engine, prewarm
+        cli.scan_stream, runtime.NativeRadarLoader.__next__ = scan_stream, loader_next
     return dict(total)
+
+
+def loader_phase(ds, cfg: SlamConfig, name_power: str) -> None:
+    """Phase 14's loader part: build the native scan loader with the host
+    compiler, then read every scan of the written sequence three ways, one
+    native decode per call, through the prefetching NativeRadarLoader and
+    with the Python decoder, and require the same arrays bit for bit."""
+    from navtech_radar_slam_torch import runtime
+    from navtech_radar_slam_torch.data.mulran import decode_polar_scan
+    from navtech_radar_slam_torch.data.png import read_png
+    from navtech_radar_slam_torch.runtime import loader as loader_mod
+
+    t0 = time.perf_counter()
+    if not runtime.native_available():
+        raise AssertionError(f"the native loader did not build:\n{runtime.build_error()}")
+    print(f"native loader build: {loader_mod.LIBRARY.command or '(already built)'}: "
+          f"{time.perf_counter() - t0:.2f} s{', output: ' if loader_mod.LIBRARY.log else ''}"
+          f"{loader_mod.LIBRARY.log.strip()}")
+    paths = [os.path.join(ds.scan_dir, f) for f in ds.scan_files]
+    native, python, native_ms, python_ms = [], [], [], []
+    for i, path in enumerate(paths):     # the two decoders in turns
+        t0 = time.perf_counter()
+        native.append(runtime.decode_png_native(path, cfg.radar, raw_u8=True))
+        t1 = time.perf_counter()
+        s = decode_polar_scan(read_png(path), cfg.radar, ds.timestamp(i), raw_u8=True)
+        t2 = time.perf_counter()
+        python.append((s.power, s.ray_timestamps, s.azimuths, s.valid))
+        native_ms.append(1e3 * (t1 - t0))
+        python_ms.append(1e3 * (t2 - t1))
+    t0 = time.perf_counter()
+    prefetched = list(runtime.NativeRadarLoader(paths, cfg.radar, num_workers=2, raw_u8=True))
+    prefetch_s = time.perf_counter() - t0
+    if len(prefetched) != len(paths):
+        raise AssertionError(f"NativeRadarLoader gave {len(prefetched)} of {len(paths)} scans")
+    for path, a, b, c in zip(paths, native, prefetched, python):
+        for name, x, y, z in zip(("power", "ray timestamps", "azimuths", "valid"), a, b, c):
+            if not (x.dtype == y.dtype == z.dtype and np.array_equal(x, y)
+                    and np.array_equal(x, z)):
+                raise AssertionError(f"{path}: {name} differs between the decode routes")
+    print(f"loader: {len(paths)} scans equal across decode_png_native, NativeRadarLoader("
+          f"raw_u8=True, num_workers=2) and the python decoder (power, ray timestamps, "
+          f"azimuths, valid, bit for bit)")
+    print(f"scan decode, one thread, ms per scan over {len(paths)} scans in turns: native "
+          f"median {np.median(native_ms):.3f} (min {min(native_ms):.3f}, max "
+          f"{max(native_ms):.3f}); python (data.png + decode_polar_scan) median "
+          f"{np.median(python_ms):.3f} (min {min(python_ms):.3f}, max {max(python_ms):.3f}); "
+          f"NativeRadarLoader with 2 workers, drained without other work: "
+          f"{1e3 * prefetch_s / len(paths):.3f} ms per scan; host clock [{name_power}]")
 
 
 def main() -> None:

@@ -12,8 +12,6 @@ defaults, but:
   * ``--device {cuda,cpu}`` (default cuda) in place of ``--platform``; with
     cuda and no card it raises, it never falls back to the CPU;
   * ``--mesh N`` with N > 1 raises: the multi-device layer is not ported;
-  * ``--no_native_loader`` is accepted, and the scans are always read by the
-    numpy PNG decoder (``loader: python``): the native loader is not ported;
   * ``--save_plot true`` (the default) needs matplotlib, checked when the
     arguments are parsed;
   * the run's pending loops are committed before ``stats.json`` is built, so
@@ -70,8 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "session into the prior's frame")
     p.add_argument("--use_gps", type=_bool, default=False)
     p.add_argument("--no_native_loader", action="store_true",
-                   help="accepted for the JAX CLI's sake: the port always reads scans "
-                        "with its numpy PNG decoder")
+                   help="read the scans with the numpy PNG decoder on the main thread "
+                        "instead of the native loader (C++ decode on prefetch threads)")
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler Chrome trace here")
     p.add_argument("--status_every", type=int, default=50)
@@ -179,20 +177,45 @@ def make_config(args):
 
 def scan_stream(args, cfg):
     """(generator of (power, azimuths, ray_valid, timestamp), scans, loader
-    name).  Power is the raw uint8 image (the device casts /255: a quarter
-    of the float upload); ray_valid is the sensor's per-azimuth validity
-    byte, which the engine applies on the device."""
+    name).  The native loader (``runtime``: C++ decode on two prefetch
+    threads) unless ``--no_native_loader`` is given or its library cannot be
+    built, in which case the reason goes to stderr and the numpy decoder
+    reads in line.  Power is the raw uint8 image (the device casts /255: a
+    quarter of the float upload); ray_valid is the sensor's per-azimuth
+    validity byte, which the engine applies on the device; the timestamp is
+    the file name's."""
     from navtech_radar_slam_torch.data.mulran import MulranRadarDataset
 
     ds = MulranRadarDataset(args.seq_dir, cfg.radar, raw_u8=True)
     n = len(ds) if args.max_scans <= 0 else min(len(ds), args.max_scans)
 
-    def gen():
+    if not args.no_native_loader:
+        from navtech_radar_slam_torch import runtime
+
+        if runtime.native_available():
+            paths = [os.path.join(ds.scan_dir, f) for f in ds.scan_files[:n]]
+            # chunk mode reads two chunks back to back (two in flight): the
+            # queue holds both, so they are decoded while the engine works
+            loader = runtime.NativeRadarLoader(paths, cfg.radar, raw_u8=True,
+                                               queue_capacity=max(8, 2 * args.chunk))
+
+            def gen_native():
+                try:
+                    for i, (power, _, az, valid) in enumerate(loader):
+                        yield power, az, valid, ds.timestamp(i)
+                finally:
+                    loader.close()
+
+            return gen_native(), n, "native"
+        print(f"native loader unavailable; reading with the python loader:\n"
+              f"{runtime.build_error()}", file=sys.stderr)
+
+    def gen_py():
         for i in range(n):
             s = ds[i]
             yield s.power, s.azimuths, s.valid, s.timestamp
 
-    return gen(), n, "python"
+    return gen_py(), n, "python"
 
 
 def load_gps(seq_dir: str):

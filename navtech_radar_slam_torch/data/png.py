@@ -26,9 +26,11 @@ def _chunks(data: bytes, path: str):
     while pos + 12 <= len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         kind = data[pos + 4:pos + 8]
+        if pos + 12 + length > len(data):
+            raise ValueError(f"{path}: corrupt PNG chunk {kind!r}")
         payload = data[pos + 8:pos + 8 + length]
         (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
-        if len(payload) != length or zlib.crc32(kind + payload) != crc:
+        if zlib.crc32(kind + payload) != crc:
             raise ValueError(f"{path}: corrupt PNG chunk {kind!r}")
         yield kind, payload
         if kind == b"IEND":
@@ -76,7 +78,10 @@ def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
     if interlace != 0 or compression != 0 or filt != 0:
         raise ValueError(f"{path}: only non-interlaced PNGs are read (interlace "
                          f"{interlace}, compression {compression}, filter method {filt})")
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f"{path}: corrupt image data ({e})") from None
     if raw.size != height * (width + 1):
         raise ValueError(f"{path}: {raw.size} bytes of image data for {height} rows of "
                          f"{width} pixels")

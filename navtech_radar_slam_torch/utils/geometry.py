@@ -36,6 +36,10 @@ _EPS = 1e-8
 # SE(2)
 # ---------------------------------------------------------------------------
 
+def se2_identity(dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    return torch.zeros(3, dtype=dtype, device=device)
+
+
 def wrap_angle(theta: torch.Tensor) -> torch.Tensor:
     """Wrap angle(s) to (-pi, pi]."""
     return torch.atan2(torch.sin(theta), torch.cos(theta))
@@ -180,6 +184,10 @@ def _so3_left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
 # SE(3)
 # ---------------------------------------------------------------------------
 
+def se3_identity(dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    return torch.eye(4, dtype=dtype, device=device)
+
+
 def se3_from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """[R t; 0 1] built with cat/stack (no in-place writes)."""
     top = torch.cat([R, t[..., :, None]], dim=-1)                   # (..., 3, 4)
@@ -214,6 +222,39 @@ def se3_mul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 def se3_between(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """gtsam Pose3::between — A^{-1} B."""
     return se3_inv(A) @ B
+
+
+def se3_apply(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Transform points (..., N, 3) by SE(3) (..., 4, 4)."""
+    return (torch.einsum("...ij,...nj->...ni", T[..., :3, :3], pts)
+            + T[..., None, :3, 3])
+
+
+# ---------------------------------------------------------------------------
+# Euler RPY (gtsam convention: R = Rz(yaw) Ry(pitch) Rx(roll))
+# ---------------------------------------------------------------------------
+
+def rpy_to_rotmat(roll: torch.Tensor, pitch: torch.Tensor, yaw: torch.Tensor) -> torch.Tensor:
+    cr, sr = torch.cos(roll), torch.sin(roll)
+    cp, sp = torch.cos(pitch), torch.sin(pitch)
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    row0 = torch.stack([cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr], dim=-1)
+    row1 = torch.stack([sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr], dim=-1)
+    row2 = torch.stack([-sp, cp * sr, cp * cr], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def pose6d_to_se3(p: torch.Tensor) -> torch.Tensor:
+    """[x, y, z, roll, pitch, yaw] -> 4x4, the reference's Pose6D."""
+    return se3_from_rt(rpy_to_rotmat(p[..., 3], p[..., 4], p[..., 5]), p[..., :3])
+
+
+def se3_to_pose6d(T: torch.Tensor) -> torch.Tensor:
+    R = T[..., :3, :3]
+    pitch = -torch.asin(torch.clamp(R[..., 2, 0], -1.0, 1.0))
+    roll = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    return torch.cat([T[..., :3, 3], torch.stack([roll, pitch, yaw], dim=-1)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

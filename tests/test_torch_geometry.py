@@ -156,3 +156,65 @@ def test_numpy_host_helpers(rng):
     np.testing.assert_allclose(tgeo.se2_between_np(a, b), jgeo.se2_between_np(a, b),
                                atol=1e-12)
     np.testing.assert_allclose(tgeo.se2_to_se3_np(a), jgeo.se2_to_se3_np(a), atol=1e-12)
+
+
+# the pose6d helpers (tests/test_geometry.py:31, :39, :84-85)
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_identities(dtype):
+    tdt = getattr(torch, dtype)
+    np.testing.assert_array_equal(np_(tgeo.se2_identity(tdt)),
+                                  np.asarray(jgeo.se2_identity(jnp.float32)))
+    np.testing.assert_array_equal(np_(tgeo.se3_identity(tdt)),
+                                  np.asarray(jgeo.se3_identity(jnp.float32)))
+    assert tgeo.se2_identity(tdt).dtype == tgeo.se3_identity(tdt).dtype == tdt
+
+
+def test_se2_between_composes_back(rng):
+    """a ∘ between(a, b) = b ∘ identity, in both packages."""
+    a = rng.normal(size=(5, 3)).astype(np.float32)
+    b = rng.normal(size=(5, 3)).astype(np.float32)
+    got = tgeo.se2_mul(t(a), tgeo.se2_between(t(a), t(b)))
+    want = jgeo.se2_mul(jnp.asarray(b), jgeo.se2_identity())
+    np.testing.assert_allclose(np_(got), np.asarray(want), atol=1e-4)
+    np.testing.assert_allclose(np_(tgeo.se2_mul(t(b), tgeo.se2_identity())), np.asarray(want),
+                               atol=ATOL)
+
+
+def test_se3_apply(rng):
+    """Batched transforms of point sets against JAX's, and the SE(2) apply
+    through se2_to_se3."""
+    T = np.array(jgeo.se3_exp(jnp.asarray(_tangents(rng, 6))))
+    T[:, :3, 3] *= 10.0
+    pts = rng.uniform(-20, 20, (6, 50, 3)).astype(np.float32)
+    want = np.asarray(jgeo.se3_apply(jnp.asarray(T), jnp.asarray(pts)))
+    np.testing.assert_allclose(np_(tgeo.se3_apply(t(T), t(pts))), want, atol=1e-4)
+    p = np.asarray([1.0, -2.0, 0.7], np.float32)
+    pts2 = rng.normal(size=(10, 2)).astype(np.float32)
+    pts3 = np.concatenate([pts2, np.zeros((10, 1), np.float32)], axis=-1)
+    out3 = tgeo.se3_apply(tgeo.se2_to_se3(t(p)), t(pts3))
+    np.testing.assert_allclose(np_(tgeo.se2_apply(t(p), t(pts2))), np_(out3)[:, :2], atol=ATOL)
+
+
+def _pose6d(rng, n=8):
+    return np.concatenate([rng.normal(size=(n, 3)) * 5,
+                           rng.uniform(-1.2, 1.2, size=(n, 3))], axis=-1).astype(np.float32)
+
+
+def test_rpy_to_rotmat(rng):
+    p = _pose6d(rng, 30)
+    want = np.asarray(jgeo.rpy_to_rotmat(*(jnp.asarray(p[:, k]) for k in (3, 4, 5))))
+    got = tgeo.rpy_to_rotmat(*(t(p[:, k]) for k in (3, 4, 5)))
+    np.testing.assert_allclose(np_(got), want, atol=ATOL)
+
+
+def test_pose6d_round_trip(rng):
+    """pose6d_to_se3 and se3_to_pose6d against JAX's, and the round trip."""
+    p = _pose6d(rng)
+    T = tgeo.pose6d_to_se3(t(p))
+    np.testing.assert_allclose(np_(T), np.asarray(jgeo.pose6d_to_se3(jnp.asarray(p))),
+                               atol=ATOL)
+    Tj = np.asarray(jgeo.pose6d_to_se3(jnp.asarray(p)))
+    np.testing.assert_allclose(np_(tgeo.se3_to_pose6d(t(Tj))),
+                               np.asarray(jgeo.se3_to_pose6d(jnp.asarray(Tj))), atol=ATOL)
+    np.testing.assert_allclose(np_(tgeo.se3_to_pose6d(T)), p, atol=1e-4)

@@ -39,6 +39,8 @@ MODULES = [
     "navtech_radar_slam_torch.entry",
     "navtech_radar_slam_torch.eval",
     "navtech_radar_slam_torch.cli",
+    "navtech_radar_slam_torch.runtime",
+    "navtech_radar_slam_torch.runtime.loader",
 ]
 
 

@@ -280,3 +280,94 @@ def test_load_odometry_state_drops_the_last_step():
     assert odo.last_result is None and odo.last_ok is False
     np.testing.assert_array_equal(odo.last_applied_rel, np.zeros(3))
     np.testing.assert_array_equal(odo.pose, [1.0, 2.0, 0.3])
+
+
+def test_engines_survive_garbage_scans():
+    """Sensor dropout mid-run (tests/test_slam.py:111): three frames of pure
+    noise among 14 scans.  Both engines coast, count the same failures
+    (at least the three), keep every pose finite and register again after
+    the dropout."""
+    sim = RadarSimulator(CFG.radar)
+    gt = sim.circuit_trajectory(14, radius=10.0, speed=6.0)
+    noise_rng = np.random.default_rng(1)
+    jeng = jslam.SlamEngine(CFG)
+    teng = tslam.SlamEngine(CFG, device="cpu")
+    for i in range(14):
+        if 5 <= i < 8:
+            scan = noise_rng.exponential(
+                0.04, size=(CFG.radar.num_azimuths, CFG.radar.padded_range_bins)
+            ).astype(np.float32).clip(0, 1)
+        else:
+            scan = sim.render(gt[i], noise_seed=i)
+        pj = jeng.process(scan, timestamp=i * 0.25)
+        pt = teng.process(scan, timestamp=i * 0.25)
+        assert np.isfinite(pj).all() and np.isfinite(pt).all(), i
+    assert teng.odometry.num_failures == jeng.odometry.num_failures >= 3
+    assert bool(jeng.odometry.last_result.ok) and teng.odometry.last_ok
+    assert np.isfinite(teng.trajectory()).all()
+    np.testing.assert_allclose(teng.trajectory(), jeng.trajectory(), rtol=0, atol=0.1)
+
+
+def _clone_case():
+    """tests/test_slam.py:685's graph: 100 nodes walking +2 m in x, node 0's
+    cloud observed again, exactly, at node 80 (160 m of path later); as
+    numpy (poses, odometry steps, clouds, SE(2) poses)."""
+    rng = np.random.default_rng(0)
+    k, n, cap = 256, 100, 128
+    cloud = rng.uniform(-30, 30, size=(k, 2)).astype(np.float32)
+    poses = np.tile(np.eye(4, dtype=np.float32), (cap, 1, 1))
+    poses[:n, 0, 3] = 2.0 * np.arange(n)
+    step = np.eye(4, dtype=np.float32)
+    step[0, 3] = 2.0
+    odom_valid = np.ones(cap, bool)
+    odom_valid[0] = False
+    clouds = np.zeros((cap, k, 2), np.float32)
+    clouds[0] = cloud
+    clouds_valid = np.zeros((cap, k), bool)
+    clouds_valid[0] = True
+    poses_se2 = np.zeros((cap, 3), np.float32)
+    poses_se2[:n, 0] = 2.0 * np.arange(n)
+    return n, cap, cloud, poses, np.tile(step, (cap, 1, 1)), odom_valid, clouds, \
+        clouds_valid, poses_se2
+
+
+@pytest.mark.parametrize("session_start,gate,accepted", [(0, True, False), (40, True, True),
+                                                        (0, False, True)],
+                         ids=["clone_rejected", "inter_session_exempt", "gate_off"])
+def test_odom_consistency_gate_matches_jax(session_start, gate, accepted):
+    """The odometry-consistency gate on an exact clone (tests/test_slam.py:685):
+    ICP fits the alias with loop-grade fitness in both packages; the gate
+    rejects it 160 m of path away, exempts the pair across a session start,
+    and with ``odom_consistency_frac = 0`` fitness alone accepts.  The
+    port's ``_odom_path_cum`` and ``_verify_candidate`` make JAX's decision
+    on the same graph and clouds."""
+    from navtech_radar_slam_tpu.models import posegraph as jpg
+    from navtech_radar_slam_torch.models import posegraph as tpg
+
+    cfg = CFG if gate else dataclasses.replace(
+        CFG, icp=dataclasses.replace(CFG.icp, odom_consistency_frac=0.0))
+    n, cap, cloud, poses, odom, odom_valid, clouds, clouds_valid, poses_se2 = _clone_case()
+    pgo = dataclasses.replace(cfg.pgo, max_nodes=cap)
+    gj = jpg.empty_graph(pgo)._replace(poses=jnp.asarray(poses), odom_meas=jnp.asarray(odom),
+                                       odom_valid=jnp.asarray(odom_valid),
+                                       num_nodes=jnp.asarray(n, jnp.int32))
+    gt_ = tpg.empty_graph(pgo, device="cpu")._replace(
+        poses=t(poses), odom_meas=t(odom), odom_valid=t(odom_valid),
+        num_nodes=torch.tensor(n))
+    path_j, path_t = jslam._odom_path_cum(gj), tslam._odom_path_cum(gt_)
+    np.testing.assert_allclose(np_(path_t), np.asarray(path_j), rtol=1e-6)
+    cj = jsc.LoopCandidate(idx=jnp.asarray(0, jnp.int32), dist=jnp.asarray(0.01, jnp.float32),
+                           yaw=jnp.asarray(0.0, jnp.float32), found=jnp.asarray(True))
+    ct = tsc.LoopCandidate(idx=torch.tensor(0), dist=torch.tensor(0.01),
+                           yaw=torch.tensor(0.0), found=torch.tensor(True))
+    rj = jslam._verify_candidate(cj, jnp.asarray(clouds), jnp.asarray(clouds_valid),
+                                 jnp.asarray(poses_se2), jnp.asarray(cloud),
+                                 jnp.ones(len(cloud), bool), jnp.asarray(81, jnp.int32), cfg,
+                                 path_cum=path_j,
+                                 session_start=jnp.asarray(session_start, jnp.int32))
+    rt = tslam._verify_candidate(ct, t(clouds), t(clouds_valid), t(poses_se2), t(cloud),
+                                 torch.ones(len(cloud), dtype=torch.bool), 81, cfg,
+                                 path_cum=path_t, session_start=session_start)
+    assert float(rt.fitness) < cfg.icp.fitness_thresh and float(rj.fitness) < cfg.icp.fitness_thresh
+    assert bool(rt.accepted) == bool(rj.accepted) == accepted
+    np.testing.assert_allclose(np_(rt.rel_pose), np.asarray(rj.rel_pose), atol=1e-3)
