@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's odometry, batched-odometry and full-SLAM paths
-and its command line once on one NVIDIA GPU.
+"""Drive the PyTorch port's odometry, batched-odometry and full-SLAM paths,
+its command line and its multi-device layer once on one NVIDIA GPU.
 
     python3 chip_smoke.py            (from the repository root)
 
@@ -96,11 +96,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
      final.npz, the 20 scans: an inter-session loop, rebased, and the second
      session's keyframes within 1.5 m on average of their ground truth in
      the first session's frame;
- 15. times: K2 (on the all-live bank), K3, K2-T, K3-T (16 slots) and K1 x B
+ 15. the multi-device layer (navtech_radar_slam_torch/parallel/): one
+     NCCL all_reduce and all_gather through the port's Mesh at world size
+     1 (with NCCL's version), and what NCCL says to two ranks on cuda:0
+     (refused: "Duplicate GPU"); then 2 gloo ranks on cuda:0 started by
+     parallel.launch (CUDA tensors copied through the host), on full-size
+     inputs, each held against the single-device path on the same inputs,
+     every rank's result equal: the sharded search (full and ring-key, T =
+     1 and 16, at 2048 and 8192 bank rows a rank; idx equal to the
+     single-device K2-T search, dist within 2e-5), one distributed solve at
+     1024 x 2 nodes from poses ~0.1 m off the odometry chain (positions
+     within 5e-2 m of the single-device solve, which must move them 10x
+     that), the sharded odometry step at B = 64 (32 streams a rank, one
+     K1 x 32 launch a step; every leaf bit-equal to the one-device step on
+     the rank's streams, rel_pose within 1e-4 of the 64-stream step), and the
+     mesh engine streamed over the 60 SLAM scans at SlamConfig() (every
+     counter reset just before and read just after; the streamed run's
+     loops within the band, positions within 0.1 m, ATE < 1 % of the
+     path).  Prints each rank's K2-T device ms, the collectives' ms, the
+     solve's ms, the engine's ms per scan and the bank bytes per rank;
+ 16. times: K2 (on the all-live bank), K3, K2-T, K3-T (16 slots) and K1 x B
      (B = 64) against their plain versions, the per-scan SlamEngine.process
      time split into odometry, keyframe step and refine, and the streamed
      run's time per scan beside it;
- 16. for each kernel, the device time per launch (CUDA events around 200
+ 17. for each kernel, the device time per launch (CUDA events around 200
      back-to-back launches, the host queued ahead of the card behind a
      sleep kernel), its bound (the larger of the bytes it must move over
      the H100's 3.35 TB/s and its fp32 operations over 67 TFLOP/s, from
@@ -118,11 +137,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
 The line before the last is the kernel report
 {"kernels": [{"name", "route", "source", "replaces", "launches",
 "launches_odometry", "launches_slam", "launches_streaming",
-"launches_batched", "launches_cli", "max_abs_err", "ms", "device_ms",
+"launches_batched", "launches_cli", "launches_mesh", "max_abs_err", "ms", "device_ms",
 "plain_ms", "bound_ms", "bound_by", "library_ms"}]} ("launches": the
 per-scan full-SLAM path's for K1, K2 and K3, the streamed path's for K2-T
 and K3-T, the batched odometry path's for K1 x B; "launches_cli": the sum
-over phase 14's three CLI calls, prewarm included; "ms": one wrapper call fenced by
+over phase 14's three CLI calls, prewarm included; "launches_mesh": phase
+15's mesh paths (search, odometry, engine), summed over the ranks; "ms": one
+wrapper call fenced by
 CUDA events, median; "library_ms": null, since no single PyTorch call
 computes any of the six functions), the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -133,6 +154,7 @@ nothing here or in the port imports jax or the JAX package.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import json
 import os
@@ -154,7 +176,7 @@ from navtech_radar_slam_torch.models.odometry import (
     make_batched_odometry_step, match_feature_pair)
 from navtech_radar_slam_torch.ops import cen2019, icp, registration, scancontext
 from navtech_radar_slam_torch.ops.kernels import cen_peaks, nn_dist, sc_corr
-from navtech_radar_slam_torch.utils.geometry import se2_between_np, se2_mul_np
+from navtech_radar_slam_torch.utils.geometry import se2_between_np, se2_mul_np, se2_to_se3_np
 
 N_SCANS = 24
 N_SLAM_SCANS = 60
@@ -706,7 +728,7 @@ def streaming_path(cfg: SlamConfig, gt: np.ndarray, scans: list, dev, name_power
           f"segments {1e3 * stage['segment']:.1f}, per-keyframe steps "
           f"{1e3 * stage['keyframe']:.1f}, refine (all) {1e3 * stage['refine']:.1f} ms; host "
           f"clock after synchronize [{name_power}]")
-    return launches, loops, med, whole
+    return launches, loops, med, whole, traj
 
 
 def check_k1b(label: str, x: torch.Tensor, cfg: SlamConfig) -> float:
@@ -1086,6 +1108,412 @@ def loader_phase(ds, cfg: SlamConfig, name_power: str) -> None:
           f"{1e3 * prefetch_s / len(paths):.3f} ms per scan; host clock [{name_power}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the multi-device layer (navtech_radar_slam_torch/parallel/)
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2                 # gloo ranks sharing cuda:0
+MESH_SEARCH_ROWS = (2048, 8192)  # bank rows per rank (bench_scaling.py's shard sizes)
+MESH_SOLVE_NODES = 1024        # pose-graph nodes per rank
+#: distributed vs single-device solve, positions (m; the JAX suite's band):
+#: the two sum the matvec in different orders, and three GN steps of 64 CG
+#: iterations leave about 1 % of the move (the line prints the
+#: difference); the solve must move the poses at least 10x this
+MESH_SOLVE_ATOL = 5e-2
+MESH_STREAMS = 64              # sharded odometry streams (32 per rank)
+MESH_TIMEOUT_S = 600.0         # the process group's collective timeout
+
+
+def _search_cfgs(cfg: SlamConfig) -> dict:
+    sc = cfg.scancontext
+    return {"full": dataclasses.replace(sc, search_mode="full"),
+            "ringkey": dataclasses.replace(sc, search_mode="ringkey")}
+
+
+def _search_num_valids(n_rows: int, t: int, excl: int) -> list:
+    """Slot s sees n_rows + excl - t + 1 + s keyframes: the last slot's
+    searchable bound is the whole bank."""
+    return [n_rows + excl - t + 1 + s for s in range(t)]
+
+
+def mesh_rank(mesh, work: str) -> dict:
+    """One gloo rank on cuda:0: the sharded search (full and ring-key, T = 1
+    and 16, at each MESH_SEARCH_ROWS per rank), one distributed solve, one
+    sharded batched odometry step, and the mesh engine streamed over the 60
+    SLAM scans; each with its launches and times."""
+    from navtech_radar_slam_torch.models import posegraph as pg_mod
+    from navtech_radar_slam_torch.parallel import dist_pgo, sharded_bank, sharded_odometry
+
+    dev = mesh.device
+    d = mesh.size
+    z = np.load(os.path.join(work, "inputs.npz"))
+    cfg = SlamConfig()
+    out = {"rank": mesh.rank}
+
+    # 1. the sharded search
+    bank_all = torch.as_tensor(z["bank"], device=dev)
+    queries = torch.as_tensor(z["queries"], device=dev)
+    excl = cfg.scancontext.num_exclude_recent
+    search = {}
+    launches = defaultdict(int)
+    for rows in MESH_SEARCH_ROWS:
+        n = rows * d
+        lo, hi = mesh.block(n)
+        local = bank_all[lo:hi].contiguous()
+        # the searches' launches alone: counted from 0 here, read before the
+        # timing launches below
+        reset_counts()
+        for mode, scfg in _search_cfgs(cfg).items():
+            detect = sharded_bank.make_sharded_loop_detector_batch(mesh, scfg,
+                                                                   cfg.parallel.shard_top_k)
+            for t in (1, SLOTS):
+                cand = detect(queries[:t], local, _search_num_valids(n, t, excl))
+                search[(rows, mode, t)] = cand._asdict()
+        for k, v in read_counts().items():
+            launches[k] += v
+        # device time per launch on this rank's block, one rank at a time
+        for r in range(d):
+            mesh.barrier()
+            if r == mesh.rank:
+                search[(rows, "k2t_ms")] = (
+                    device_ms(lambda: sc_corr.sc_shift_distances_multi_cuda(queries, local)),
+                    device_ms(lambda: sc_corr.sc_shift_distances_multi_cuda(queries[:1], local)))
+        mesh.barrier()
+        search[(rows, "bank_bytes")] = local.numel() * local.element_size()
+    out["search"] = search
+    out["search_launches"] = dict(launches)
+
+    # the collectives alone, at the shapes the mesh paths give them
+    best = torch.zeros((SLOTS, 3), device=dev)
+    vec = torch.zeros(MESH_SOLVE_NODES * d * 6, device=dev)
+    packet = torch.zeros(9 * SLOTS, device=dev)
+    flag = torch.ones((), device=dev)
+    # (median of 20 calls, each fenced by CUDA events: a collective through
+    # gloo includes its host copies)
+    out["collective_ms"] = {
+        "all_gather (16, 3) search result": median_ms(lambda: mesh.all_gather(best), 20),
+        f"all_reduce ({vec.numel()},) matvec": median_ms(lambda: mesh.all_reduce_sum(vec), 20),
+        f"broadcast ({packet.numel()},) decision packet": median_ms(
+            lambda: mesh.broadcast(packet), 20),
+        "all_reduce MAX () CG flag": median_ms(lambda: mesh.agree_max(flag), 20),
+    }
+
+    # 2. one distributed solve at MESH_SOLVE_NODES x d nodes
+    g = pg_mod.GraphArrays(*(torch.as_tensor(z[f"graph_{i}"], device=dev) for i in range(10)))
+    pcfg = dataclasses.replace(cfg.pgo, max_nodes=MESH_SOLVE_NODES * d, gn_iters=3)
+    solve = dist_pgo.make_distributed_solver(mesh, pcfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["solve_poses"] = solve(g)
+    torch.cuda.synchronize()
+    out["solve_ms"] = 1e3 * (time.perf_counter() - t0)
+
+    # 3. the sharded batched odometry step, 32 streams a rank
+    step, shard = sharded_odometry.make_sharded_batched_odometry(mesh, cfg)
+    az = torch.as_tensor(default_azimuths(cfg), device=dev)
+    u8 = torch.as_tensor(z["odo_u8"], device=dev)
+    offsets = torch.as_tensor(np.arange(MESH_STREAMS) % STREAM_OFFSETS, device=dev)
+    prev_all, curr_all = u8[offsets], u8[offsets + 1]
+    torch.cuda.synchronize()
+    reset_counts()
+    carry = sharded_odometry.make_sharded_extract(mesh, cfg)(shard(prev_all), az)
+    t0 = time.perf_counter()
+    carry, res, feats = step(shard(curr_all), az, carry, shard(torch.zeros(MESH_STREAMS, 3)))
+    torch.cuda.synchronize()
+    out["odo_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["odo_launches"] = read_counts()
+    out["odo_block"] = mesh.block(MESH_STREAMS)
+    out["odo"] = {"res": res._asdict(), "carry": carry._asdict(), "feats": feats._asdict()}
+    # the one-device batched step on this rank's streams alone, for the check
+    # that the split changes nothing but the batch size
+    lo, hi = out["odo_block"]
+    own = make_batched_odometry_step(cfg, device=dev)
+    c_own, r_own, f_own = own(curr_all[lo:hi], az, extract_scan_features_batched(
+        prev_all[lo:hi], az, cfg), torch.zeros(hi - lo, 3, device=dev))
+    out["odo_own"] = {"res": r_own._asdict(), "carry": c_own._asdict(),
+                      "feats": f_own._asdict()}
+
+    # 4. the mesh engine, streamed over the SLAM scans (chunks of CHUNK, two
+    # in flight), every counter reset just before and read just after
+    scans = np.load(os.path.join(work, "slam_scans.npy"), mmap_mode="r")
+    eng = slam_mod.SlamEngine(cfg, mesh=mesh)
+    stage = defaultdict(float)
+    eng._refine_graph = timed(stage, "refine", eng._refine_graph)
+    eng._dispatch_segment = timed(stage, "segment", eng._dispatch_segment)
+    torch.cuda.synchronize()
+    mesh.barrier()
+    reset_counts()
+    steps = []
+    t_run = time.perf_counter()
+    for c0 in range(0, len(scans), CHUNK):
+        t0 = time.perf_counter()
+        chunk = np.array(scans[c0:c0 + CHUNK])
+        eng.begin_chunk(chunk, timestamps=[i * 0.25 for i in range(c0, c0 + len(chunk))])
+        if eng.inflight_chunks >= 2:
+            eng.finish_chunk()
+        torch.cuda.synchronize()
+        steps.append(1e3 * (time.perf_counter() - t0) / len(chunk))
+    eng.current_pose()
+    torch.cuda.synchronize()
+    out["engine_whole_ms"] = 1e3 * (time.perf_counter() - t_run) / len(scans)
+    out["engine_step_ms"] = float(np.median(steps))
+    out["engine_stage_ms"] = {k: 1e3 * v for k, v in stage.items()}
+    out["engine_launches"] = read_counts()
+    out["engine_traj"] = eng.trajectory()
+    out["engine_loops"] = [(e.prev_idx, e.curr_idx) for e in eng.loops]
+    out["engine_counts"] = dict(eng.dispatch_counts)
+    out["engine_keyframes"] = eng.num_keyframes
+    out["engine_bank"] = (tuple(eng.bank.shape), eng.bank.numel() * eng.bank.element_size(),
+                          eng._bank_start)
+    return out
+
+
+def nccl_world1(mesh) -> dict:
+    """One all_reduce and one all_gather through the port's Mesh on NCCL at
+    world size 1."""
+    x = torch.arange(4, dtype=torch.float32, device=mesh.device)
+    return {"nccl": ".".join(map(str, torch.cuda.nccl.version())), "backend": mesh.backend,
+            "all_reduce": mesh.all_reduce_sum(x), "all_gather": mesh.all_gather(x)}
+
+
+def nccl_two_on_one_card(mesh) -> dict:
+    """What NCCL does with two ranks on one card (a collective forces its
+    communicator up)."""
+    return {"all_reduce": mesh.all_reduce_sum(torch.ones(4, device=mesh.device))}
+
+
+def mesh_phase(cfg: SlamConfig, sim: RadarSimulator, live_bank: torch.Tensor,
+               odo_scans: list, slam_scan_list: list, gt_slam: np.ndarray,
+               stream_loops: list, stream_traj: np.ndarray, dev, name_power: str) -> dict:
+    """Phase 15: NCCL at world size 1 and refused for two ranks on one card,
+    then MESH_RANKS gloo ranks on cuda:0 (``parallel.launch``) against the
+    single-device paths on the same inputs.  Returns the launches of the
+    mesh paths, summed over the ranks."""
+    from navtech_radar_slam_torch.models import posegraph as pg_mod
+    from navtech_radar_slam_torch.parallel.launch import launch
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        # NCCL, world size 1
+        t0 = time.perf_counter()
+        one = launch(nccl_world1, 1, backend="nccl", devices=["cuda:0"], timeout=120.0)
+        print(f"NCCL {one['nccl']} at world size 1 through the port's Mesh: all_reduce "
+              f"{one['all_reduce'].tolist()}, all_gather {one['all_gather'].tolist()} "
+              f"({time.perf_counter() - t0:.1f} s with the rank's start) [{name_power}]")
+        if (one["backend"] != "nccl" or not np.array_equal(one["all_reduce"], np.arange(4))
+                or not np.array_equal(one["all_gather"], np.arange(4)[None])):
+            raise AssertionError(f"NCCL at world size 1: {one}")
+
+        # NCCL with two ranks on cuda:0, before the gloo ranks start
+        try:
+            launch(nccl_two_on_one_card, 2, backend="nccl", devices=["cuda:0", "cuda:0"],
+                   timeout=120.0)
+            refused = None
+        except RuntimeError as err:
+            refused = str(err)
+        first = (refused or "not refused").strip().splitlines()[-1]
+        print(f"NCCL, two ranks on cuda:0: {first}")
+        if refused is None or "Duplicate GPU" not in refused:
+            raise AssertionError(f"NCCL took two ranks on one card: {refused}")
+
+        # the inputs, made once and read by every rank
+        d, excl = MESH_RANKS, cfg.scancontext.num_exclude_recent
+        n_big = MESH_SEARCH_ROWS[-1] * d
+        rng = np.random.default_rng(29)
+        reps = -(-n_big // live_bank.shape[0])
+        bank = all_live_bank(live_bank.repeat(reps, 1, 1)[:n_big].contiguous(),
+                             live_bank.shape[0])
+        # queries: rows spread over the smaller bank, rolled by a few columns
+        picks = np.sort(rng.choice(MESH_SEARCH_ROWS[0] * d - 2 * excl, SLOTS, replace=False))
+        queries = torch.roll(bank[torch.as_tensor(picks, device=dev)], shifts=3, dims=2)
+        n_nodes = MESH_SOLVE_NODES * d
+        pcfg = dataclasses.replace(cfg.pgo, max_nodes=n_nodes, gn_iters=3)
+        # a noisy chain of unit steps turning 0.01 rad a node, loop factors
+        # every 64 nodes at the true relative pose; each initial pose is off
+        # the odometry chain by ~0.1 m and 0.01 rad, so that the solve must
+        # move the poses far more than the two solves may differ
+        graph = pg_mod.PoseGraph(pcfg, device=dev)
+        unit = se2_to_se3_np(np.array([1.0, 0.0, 0.01])).astype(np.float32)
+        pose = np.eye(4, dtype=np.float32)
+        gt_chain = [pose]
+        graph.add_node(pose)
+        for k in range(1, n_nodes):
+            gt_chain.append(gt_chain[-1] @ unit)
+            meas = se2_to_se3_np(np.array([1.0 + rng.normal(0, 0.05), rng.normal(0, 0.05),
+                                           0.01 + rng.normal(0, 0.01)])).astype(np.float32)
+            pose = pose @ meas
+            jitter = se2_to_se3_np(rng.normal(0, [0.1, 0.1, 0.01])).astype(np.float32)
+            graph.add_node(pose @ jitter, odom_meas=meas)
+        for j in range(64, n_nodes, 64):
+            graph.add_loop(j - 64, j, (np.linalg.inv(gt_chain[j - 64]) @ gt_chain[j]
+                                       ).astype(np.float32))
+        # the odometry streams as uint8 scans: stream b steps from scan b % 16
+        odo_u8 = (np.clip(np.stack(odo_scans[:STREAM_OFFSETS + 1]), 0, 1) * 255).astype(np.uint8)
+        np.savez(os.path.join(work, "inputs.npz"), bank=bank.cpu().numpy(),
+                 queries=queries.cpu().numpy(), odo_u8=odo_u8,
+                 **{f"graph_{i}": x.cpu().numpy() for i, x in enumerate(graph.g)})
+        np.save(os.path.join(work, "slam_scans.npy"), np.stack(slam_scan_list))
+
+        t0 = time.perf_counter()
+        ranks = launch(mesh_rank, d, work, backend="gloo", devices="cuda:0", all_ranks=True,
+                       timeout=MESH_TIMEOUT_S)
+        mesh_s = time.perf_counter() - t0
+        print(f"mesh: {d} gloo ranks on cuda:0 (CUDA tensors copied through the host), "
+              f"{mesh_s:.1f} s with the ranks' start; one card measures no scaling "
+              f"[{name_power}]")
+
+        # 1. the sharded search against the single-device K2-T search
+        err = 0.0
+        for rows in MESH_SEARCH_ROWS:
+            n = rows * d
+            whole = bank[:n]
+            rkeys = scancontext.ring_key(whole)
+            for mode, scfg in _search_cfgs(cfg).items():
+                for t in (1, SLOTS):
+                    nvs = _search_num_valids(n, t, excl)
+                    k0 = nvs[0] - 1
+                    if mode == "full":
+                        want = scancontext.detect_loop_multi(queries[:t], whole, k0, t, scfg)
+                    else:
+                        want = scancontext.detect_loop_ringkey_multi(queries[:t], whole, rkeys,
+                                                                     k0, scfg)
+                    got = [r["search"][(rows, mode, t)] for r in ranks]
+                    for other in got[1:]:
+                        for key, v in other.items():
+                            if not np.array_equal(v, got[0][key]):
+                                raise AssertionError(f"mesh search {rows} {mode} T={t}: ranks "
+                                                     f"differ in {key}")
+                    g_idx, w_idx = got[0]["idx"], want.idx.cpu().numpy()
+                    e = float(np.abs(got[0]["dist"] - want.dist.cpu().numpy()).max())
+                    err = max(err, e)
+                    print(f"  sharded search, {rows} rows a rank ({n} in all), {mode}, T = {t}: "
+                          f"idx equal to the single-device K2-T search "
+                          f"{bool(np.array_equal(g_idx, w_idx))} ({int((g_idx >= 0).sum())} "
+                          f"found), dist max abs err {e:.3g}")
+                    if not np.array_equal(g_idx, w_idx) or e > SC_ATOL:
+                        raise AssertionError(f"mesh search {rows} {mode} T={t}: idx {g_idx} vs "
+                                             f"{w_idx}, dist err {e}")
+            k2t = [r["search"][(rows, "k2t_ms")] for r in ranks]
+            nbytes = [r["search"][(rows, "bank_bytes")] for r in ranks]
+            print(f"  K2-T device ms per launch, each rank's {rows}-row block: 16 queries "
+                  f"{', '.join('%.5f' % x[0] for x in k2t)}; one query "
+                  f"{', '.join('%.5f' % x[1] for x in k2t)}; bank bytes per rank {nbytes} "
+                  f"[{name_power}]")
+        search_k2t = sum(r["search_launches"]["sc_corr_multi"] for r in ranks)
+        print(f"  the searches launched K2-T {[r['search_launches']['sc_corr_multi'] for r in ranks]}"
+              f" times on the ranks")
+        for name in ranks[0]["collective_ms"]:
+            print(f"  collective {name}: {', '.join('%.4f' % r['collective_ms'][name] for r in ranks)}"
+                  f" ms per call (CUDA events, median of 20) [{name_power}]")
+
+        # 2. the distributed solve against the single-device solve
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single = pg_mod.make_solver(pcfg)(graph.g).poses
+        torch.cuda.synchronize()
+        single_ms = 1e3 * (time.perf_counter() - t0)
+        got = ranks[0]["solve_poses"]
+        if any(not np.array_equal(r["solve_poses"], got) for r in ranks[1:]):
+            raise AssertionError("the distributed solve differs between ranks")
+        dpos = float(np.abs(got[:, :3, 3] - single.cpu().numpy()[:, :3, 3]).max())
+        moved = float(np.abs(got[:, :3, 3] - graph.g.poses.cpu().numpy()[:, :3, 3]).max())
+        print(f"  distributed solve, {n_nodes} nodes, {graph.num_loops} loops: positions within "
+              f"{dpos:.3g} m of the single-device solve (limit {MESH_SOLVE_ATOL}; moved up to "
+              f"{moved:.3g} m); "
+              f"{', '.join('%.1f' % r['solve_ms'] for r in ranks)} ms on the ranks, "
+              f"single device {single_ms:.1f} ms; host clock [{name_power}]")
+        if (not dpos < MESH_SOLVE_ATOL or not moved >= 10 * MESH_SOLVE_ATOL
+                or not np.isfinite(got).all()):
+            raise AssertionError(f"distributed solve off the single-device one by {dpos} m "
+                                 f"(limit {MESH_SOLVE_ATOL}), moved the poses {moved} m "
+                                 f"(at least {10 * MESH_SOLVE_ATOL})")
+
+        # 3. the sharded odometry against the unsharded batched step
+        az = torch.as_tensor(default_azimuths(cfg), device=dev)
+        step = make_batched_odometry_step(cfg, device=dev)
+        u8 = torch.as_tensor(odo_u8, device=dev)
+        offsets = torch.as_tensor(np.arange(MESH_STREAMS) % STREAM_OFFSETS, device=dev)
+        prev = extract_scan_features_batched(u8[offsets], az, cfg)
+        carry, res, feats = step(u8[offsets + 1], az, prev,
+                                 torch.zeros(MESH_STREAMS, 3, device=dev))
+        whole = {"res": res._asdict(), "carry": carry._asdict(), "feats": feats._asdict()}
+        n_own, diffs = 0, {}
+        for r in ranks:
+            lo, hi = r["odo_block"]
+            for part, leaves in r["odo"].items():
+                for key, v in leaves.items():
+                    if v is None:
+                        continue
+                    n_own += not np.array_equal(v, r["odo_own"][part][key])
+                    w = whole[part][key][lo:hi].cpu().numpy()
+                    if not np.array_equal(v, w):
+                        if v.dtype.kind == "f":
+                            both = np.isfinite(v) & np.isfinite(w)
+                            e = float(np.abs(v[both] - w[both]).max()) if both.any() else 0.0
+                            diffs[f"{part}.{key}"] = (int((v != w).sum()), e)
+                        else:
+                            diffs[f"{part}.{key}"] = (int((v != w).sum()), None)
+        ok_same = all(np.array_equal(r["odo"]["res"]["ok"],
+                                     whole["res"]["ok"][slice(*r["odo_block"])].cpu().numpy())
+                      for r in ranks)
+        rel_err = max(float(np.abs(r["odo"]["res"]["rel_pose"] - whole["res"]["rel_pose"][
+            slice(*r["odo_block"])].cpu().numpy()).max()) for r in ranks)
+        k1b = [r["odo_launches"]["cen_peaks_batched"] for r in ranks]
+        print(f"  sharded odometry, {MESH_STREAMS} streams ({MESH_STREAMS // d} a rank): leaves "
+              f"not bit-equal to the one-device step on the rank's own {MESH_STREAMS // d} "
+              f"streams {n_own}; against the unsharded {MESH_STREAMS}-stream step: leaves "
+              f"differing (elements, max abs err) {diffs or 'none'}, ok equal {ok_same}, "
+              f"rel_pose max abs err {rel_err:.3g}; K1 x {MESH_STREAMS // d} launches {k1b} "
+              f"(seed + step); step {', '.join('%.1f' % r['odo_ms'] for r in ranks)} ms on the "
+              f"ranks [{name_power}]")
+        if n_own or k1b != [2] * d or not ok_same or rel_err > 1e-4:
+            raise AssertionError(f"sharded odometry: {n_own} leaves differ from the rank's own "
+                                 f"step, ok equal {ok_same}, rel_pose off by {rel_err}, "
+                                 f"K1 x B {k1b}")
+
+        # 4. the mesh engine against the single-device streamed run
+        trajs = [r["engine_traj"] for r in ranks]
+        if any(not np.array_equal(t_, trajs[0]) for t_ in trajs[1:]):
+            raise AssertionError("the mesh engine's trajectories differ between ranks")
+        lm = ranks[0]["engine_loops"]
+        matched = lambda a, bs: any(abs(a[0] - b[0]) <= 2 and abs(a[1] - b[1]) <= 2 for b in bs)
+        n_m = sum(matched(a, stream_loops) for a in lm)
+        n_s = sum(matched(b, lm) for b in stream_loops)
+        gt_rel = np.asarray([se2_between_np(gt_slam[0], g_) for g_ in gt_slam[:N_SLAM_SCANS]])
+        path = float(np.sum(np.linalg.norm(np.diff(gt_rel[:, :2], axis=0), axis=1)))
+        traj = trajs[0]
+        ate = float(np.sqrt(np.mean(np.sum((traj[:, :2, 3] - gt_rel[:len(traj), :2]) ** 2,
+                                           axis=1))))
+        dtraj = float(np.abs(traj[:, :3, 3] - stream_traj[:, :3, 3]).max())
+        launches = {k: sum(r["engine_launches"][k] for r in ranks) for k in ranks[0]["engine_launches"]}
+        print(f"  mesh engine, streamed, SlamConfig(): {ranks[0]['engine_keyframes']} keyframes, "
+              f"{len(lm)} loops {lm}; matched to the single-device run's {n_m}/{len(lm)} and "
+              f"{n_s}/{len(stream_loops)}; positions within {dtraj:.3g} m of it; ATE {ate:.4f} m "
+              f"over a {path:.2f} m path; dispatch counts {ranks[0]['engine_counts']}; launches "
+              f"(both ranks) {launches}; bank per rank {[r['engine_bank'] for r in ranks]} "
+              f"(shape, bytes, first row)")
+        print(f"  mesh engine ms per scan: whole run "
+              f"{', '.join('%.3f' % r['engine_whole_ms'] for r in ranks)}, median chunk step "
+              f"{', '.join('%.3f' % r['engine_step_ms'] for r in ranks)} on the ranks; sums "
+              f"segments {', '.join('%.1f' % r['engine_stage_ms'].get('segment', 0) for r in ranks)}"
+              f", refine (all) {', '.join('%.1f' % r['engine_stage_ms'].get('refine', 0) for r in ranks)}"
+              f" ms; host clock after synchronize [{name_power}]")
+        if (ranks[0]["engine_keyframes"] != N_SLAM_SCANS or not lm
+                or n_m < len(lm) // 2 or n_s < len(stream_loops) // 2 or dtraj > 0.1
+                or not ate < 0.01 * path):
+            raise AssertionError(f"mesh engine: loops {lm} vs {stream_loops}, positions off by "
+                                 f"{dtraj} m, ATE {ate} m over {path} m")
+        if (launches["sc_corr_multi"] == 0 or launches["nn_dist_multi"] == 0
+                or launches["cen_peaks"] != d * (N_SLAM_SCANS + 1)):
+            raise AssertionError(f"mesh engine launches {launches}")
+        total = {k: launches[k] + sum(r["odo_launches"][k] for r in ranks)
+                 for k in launches}
+        total["sc_corr_multi"] += search_k2t
+        return total
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> None:
     # 1. the card
     if not torch.cuda.is_available():
@@ -1269,7 +1697,7 @@ def main() -> None:
         cfg, gt_slam, slam_scan_list, dev, name_power)
 
     # 11. the full-SLAM path, streamed
-    stream_launches, _, stream_med, stream_whole = streaming_path(
+    stream_launches, stream_loops, stream_med, stream_whole, stream_traj = streaming_path(
         cfg, gt_slam, slam_scan_list, dev, name_power, scan_loops, scan_traj)
     print(f"full SLAM, ms per scan: per-scan median {scan_med:.3f} / whole run "
           f"{scan_whole:.3f}, streamed median {stream_med:.3f} / whole run "
@@ -1296,7 +1724,12 @@ def main() -> None:
     # 14. the command line: a chunked run, a resume, a second session
     cli_launches = cli_path(cfg, name_power)
 
-    # 15. kernel times at the main path's shapes
+    # 15. the multi-device layer: NCCL at world size 1 and for two ranks on
+    # one card, then two gloo ranks on cuda:0 against the single-device paths
+    mesh_launches = mesh_phase(cfg, sim, live_bank, scans, slam_scan_list, gt_slam,
+                               stream_loops, stream_traj, dev, name_power)
+
+    # 16. kernel times at the main path's shapes
     for label, b in (("30 rows", prefix), ("all live", live_bank)):
         k2_ms, k2_plain, pa, pb = kernel_vs_plain(
             lambda: sc_corr.sc_shift_distances_cuda(query, b),
@@ -1329,7 +1762,7 @@ def main() -> None:
           f"{k1b_plain:.4f} ms (halves {pa:.4f} / {pb:.4f}), median of {TIMED_RUNS} "
           f"CUDA-event-timed runs each [{name_power}]")
 
-    # 16. device time per launch against the bound, at the main path's shapes
+    # 17. device time per launch against the bound, at the main path's shapes
     fc = cfg.features
     na, nbp = x.shape
     ntaps = cen2019.smoothing_taps(fc).numel()
@@ -1425,7 +1858,7 @@ def main() -> None:
               f"{b_ms / dev_ms:.4f}; wrapper-inclusive {ms:.4f} ms; launches odometry "
               f"{odo_n}, SLAM per scan {launches[counter]}, streamed "
               f"{stream_launches[counter]}, batched {batched_launches[counter]}, CLI "
-              f"{cli_launches[counter]}; device "
+              f"{cli_launches[counter]}, mesh (both ranks) {mesh_launches[counter]}; device "
               f"work per call (CUDA graph capture): {per_call[0]} kernel, {per_call[1]} other "
               f"nodes [{name_power}]")
         if per_call != (1, 0):
@@ -1440,7 +1873,7 @@ def main() -> None:
             "launches": main[counter], "launches_odometry": odo_n,
             "launches_slam": launches[counter], "launches_streaming": stream_launches[counter],
             "launches_batched": batched_launches[counter],
-            "launches_cli": cli_launches[counter],
+            "launches_cli": cli_launches[counter], "launches_mesh": mesh_launches[counter],
             "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })

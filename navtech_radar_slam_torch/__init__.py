@@ -26,7 +26,10 @@ full-SLAM engine (``models.slam.SlamEngine``), per scan and streamed:
 and the command line around them (``cli``: MulRan PNG sequences read by
 ``data.mulran`` on the port's own PNG decoder, checkpoint / resume with
 ``utils.checkpoint``, multi-session, loop-debug dumps, ``StageTimers``,
-``prewarm``, and the evaluation in ``eval`` and ``utils.metrics``).
+``prewarm``, and the evaluation in ``eval`` and ``utils.metrics``), and
+the multi-device layer on ``torch.distributed`` (``parallel``: the
+descriptor bank split over the ranks, the distributed pose-graph solve,
+data-parallel odometry, and the engine's and the command line's mesh).
 
 The package stands alone: it keeps its own copies of the configuration
 (``config``) and of the data helpers it uses (``data``: the simulator, the

@@ -11,7 +11,12 @@ defaults, but:
 
   * ``--device {cuda,cpu}`` (default cuda) in place of ``--platform``; with
     cuda and no card it raises, it never falls back to the CPU;
-  * ``--mesh N`` with N > 1 raises: the multi-device layer is not ported;
+  * ``--mesh N`` with N > 1 launches N ranks itself (``parallel.launch``),
+    one engine each on a ``parallel.mesh.Mesh``: with ``--device cpu`` over
+    gloo, with ``--device cuda`` over NCCL with rank r on ``cuda:r`` (it
+    raises before launching when fewer than N cards are visible).  Rank 0
+    alone prints and writes the outputs, snapshots, loop dumps and
+    checkpoints; ``--resume`` keeps the mesh;
   * ``--save_plot true`` (the default) needs matplotlib, checked when the
     arguments are parsed;
   * the run's pending loops are committed before ``stats.json`` is built, so
@@ -76,8 +81,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_plot", type=_bool, default=True,
                    help="write result_map.png (map + path + loop chords); needs matplotlib")
     p.add_argument("--mesh", type=int, default=0,
-                   help="devices to shard over; only 0 or 1 (the multi-device layer is "
-                        "not ported yet)")
+                   help="ranks to shard the descriptor bank and the pose-graph solve over "
+                        "(0 or 1: one device); the CLI launches them itself: gloo on the "
+                        "CPU, NCCL with one card per rank on cuda")
     p.add_argument("--chunk", type=int, default=0,
                    help="stream N scans per chunk (odometry of the chunk on the device, "
                         "keyframes in fused segments; 0 = per scan). GPS works in chunk "
@@ -241,35 +247,81 @@ def load_gps(seq_dir: str):
     return times, alts
 
 
+#: collective timeout of a --mesh run's process group (s): the longest a rank
+#: may wait for the others at one collective
+MESH_TIMEOUT_S = 900.0
+
+
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
     if args.mesh > 1:
-        raise NotImplementedError(f"--mesh {args.mesh}: the multi-device layer is not "
-                                  "ported yet; run on one device (--mesh 0)")
+        return _main_mesh(args, argv)
+    return _run(args)
 
+
+def _main_mesh(args, argv) -> int:
+    """Launch ``--mesh N`` ranks, each running ``_run`` on its mesh; rank 0's
+    exit code is the run's."""
+    import torch
+
+    from navtech_radar_slam_torch.parallel.launch import launch
+    from navtech_radar_slam_torch.utils.device import resolve_device
+
+    n = args.mesh
+    if args.device == "cuda":
+        resolve_device("cuda")
+        visible = torch.cuda.device_count()
+        if visible < n:
+            raise RuntimeError(f"--mesh {n} --device cuda runs rank r on cuda:r (NCCL needs "
+                               f"a card per rank): {visible} visible")
+        backend, devices = "nccl", [f"cuda:{r}" for r in range(n)]
+    else:
+        backend, devices = "gloo", "cpu"
+    # the host's cores split between the ranks (torch's default of one
+    # thread per core in each rank oversubscribes them)
+    threads = max(1, (os.cpu_count() or 1) // n)
+    print(f"mesh: {n} ranks, {backend} on {args.device}, {threads} torch threads each",
+          flush=True)
+    return launch(_mesh_rank, n, argv, backend=backend, devices=devices,
+                  timeout=MESH_TIMEOUT_S, deadline=None, threads=threads)
+
+
+def _mesh_rank(mesh, argv) -> int:
+    """One rank of a --mesh run: ranks other than 0 print nothing."""
+    if mesh.rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    return _run(parse_args(argv), mesh)
+
+
+def _run(args, mesh=None) -> int:
+    """The run on one device, or as one rank of ``mesh`` (every rank runs
+    the engine; rank 0 alone writes)."""
     from navtech_radar_slam_torch.data.packing import pack4
     from navtech_radar_slam_torch.models.slam import SlamEngine
     from navtech_radar_slam_torch.utils import checkpoint as ckpt
     from navtech_radar_slam_torch.utils import profiling
     from navtech_radar_slam_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    writer = mesh is None or mesh.rank == 0
     cfg = make_config(args)
-    os.makedirs(args.output_dir, exist_ok=True)
+    if writer:
+        os.makedirs(args.output_dir, exist_ok=True)
 
     if args.resume:
         print(f"resuming from {args.resume}")
-        eng = ckpt.load_engine(args.resume, device=device)
+        eng = ckpt.load_engine(args.resume, device=device, mesh=mesh)
         start_scan = eng.num_scans
     else:
-        eng = SlamEngine(cfg, device=device)
+        eng = SlamEngine(cfg, device=device, mesh=mesh)
         start_scan = 0
         if args.prior_session:
             print(f"attaching prior session {args.prior_session}")
             eng.attach_prior_session(args.prior_session)
             print(f"prior map: {eng.num_keyframes} keyframes")
 
-    if args.loop_debug_dir:
+    if args.loop_debug_dir and writer:
         os.makedirs(args.loop_debug_dir, exist_ok=True)
         eng.loop_debug_dir = args.loop_debug_dir
 
@@ -285,7 +337,7 @@ def main(argv=None) -> int:
         # chunk mode associates the fixes per keyframe inside the segments
         eng.set_gps_table(*gps)
 
-    live = LiveOutputs(args.output_dir, cfg, eng) if args.live else None
+    live = LiveOutputs(args.output_dir, cfg, eng) if args.live and writer else None
     timers = profiling.StageTimers()
     eng.timers = timers
     t0 = time.time()
@@ -343,7 +395,7 @@ def main(argv=None) -> int:
                     processed += n_extra
                     _warm_mark()
 
-        with profiling.device_trace(args.profile_dir):
+        with profiling.device_trace(args.profile_dir if writer else None):
             for i, (power, azimuths, valid, ts) in enumerate(stream):
                 if i < start_scan:
                     continue
@@ -364,9 +416,9 @@ def main(argv=None) -> int:
                         finish_one()
             while meta:
                 finish_one()
-        return _finalize(args, eng, processed, time.time() - t0, timers, t0, warm)
+        return _finalize(args, eng, processed, time.time() - t0, timers, t0, warm, writer)
 
-    with profiling.device_trace(args.profile_dir):
+    with profiling.device_trace(args.profile_dir if writer else None):
         for i, (power, azimuths, valid, ts) in enumerate(stream):
             if i < start_scan:
                 continue
@@ -391,7 +443,7 @@ def main(argv=None) -> int:
                       f"{processed / (time.time() - t0):.2f} scans/s")
             if args.checkpoint_every and processed % args.checkpoint_every == 0:
                 ckpt.save_engine(eng, os.path.join(args.output_dir, "checkpoint.npz"))
-    return _finalize(args, eng, processed, time.time() - t0, timers, t0, warm)
+    return _finalize(args, eng, processed, time.time() - t0, timers, t0, warm, writer)
 
 
 def _evaluate(args, eng, stats, traj_path: str) -> None:
@@ -430,10 +482,12 @@ def _evaluate(args, eng, stats, traj_path: str) -> None:
             print(f"loops vs ground truth: recall {rec:.2f}, precision {prec:.2f}")
 
 
-def _finalize(args, eng, processed: int, wall: float, timers, t0: float, warm: dict) -> int:
+def _finalize(args, eng, processed: int, wall: float, timers, t0: float, warm: dict,
+              writer: bool = True) -> int:
     """The run's epilogue: commit the pending loops, then the stats,
     trajectory and map exports, the evaluation, the final checkpoint and
-    the plot."""
+    the plot.  On a mesh every rank drains and takes part in the final
+    checkpoint; only the ``writer`` (rank 0) writes."""
     import torch
 
     from navtech_radar_slam_torch.data.mulran import save_trajectory_tum
@@ -462,6 +516,10 @@ def _finalize(args, eng, processed: int, wall: float, timers, t0: float, warm: d
                 0.0, stats.warmup_s - warm["processed"] / stats.steady_scans_per_sec)
     print("run:", stats.summary())
     print(timers.report())
+    map_pts = eng.aggregate_map()
+    if not writer:
+        ckpt.save_engine(eng, os.path.join(args.output_dir, "final.npz"))
+        return 0
 
     traj_path = os.path.join(args.output_dir, "trajectory_tum.txt")
     save_trajectory_tum(traj_path, eng.kf_times, traj)
@@ -470,7 +528,6 @@ def _finalize(args, eng, processed: int, wall: float, timers, t0: float, warm: d
                                ).numpy() if eng.odom_poses else np.zeros((0, 4, 4)))
     save_trajectory_tum(os.path.join(args.output_dir, "odometry_tum.txt"), eng.kf_times,
                         odom_se3)
-    map_pts = eng.aggregate_map()
     map_path = os.path.join(args.output_dir, "map_points.csv")
     np.savetxt(map_path, map_pts, delimiter=",", header="x,y", comments="")
     if eng.loops:

@@ -348,9 +348,9 @@ class MapConfig:
 class ParallelConfig:
     """Mesh sharding of the descriptor bank / keyframe map / PGO.
 
-    The mesh itself is passed to SlamEngine (jax.sharding.Mesh) and the
-    bank axis name is parallel.mesh.BANK_AXIS — neither is a config
-    field."""
+    The mesh itself is passed to SlamEngine (a parallel.mesh.Mesh, one
+    rank's view of a torch.distributed process group) and the bank axis
+    name is parallel.mesh.BANK_AXIS — neither is a config field."""
 
     #: sharded ring-key prefilter width: with scancontext.search_mode=
     #: "ringkey" each shard runs the full shift-correlation only on its

@@ -354,6 +354,10 @@ class RadarOdometry:
         self.last_applied_rel = np.zeros(3)
         self.num_failures = 0
         self._coast = 0
+        #: applied to the (ok, rel_pose) packet before the host reads it; a
+        #: mesh engine sets its ``Mesh.broadcast``, so that every rank reads
+        #: rank 0's result
+        self.agree: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
         self._az_dev = torch.as_tensor(default_azimuths(self.cfg), device=self.device)
 
     def _to_device(self, x) -> torch.Tensor:
@@ -381,8 +385,10 @@ class RadarOdometry:
         curr, result, curr_out = odometry_step(power, azimuths, self.prev, twist,
                                                self.cfg, ray_valid, packed)
         self.last_result = result
-        fetched = torch.cat([result.ok.to(torch.float32)[None],
-                             result.rel_pose]).cpu().numpy()
+        packet = torch.cat([result.ok.to(torch.float32)[None], result.rel_pose])
+        if self.agree is not None:
+            packet = self.agree(packet)
+        fetched = packet.cpu().numpy()
         self.last_ok = bool(fetched[0])
         if self.last_ok:
             rel = fetched[1:].astype(np.float64)

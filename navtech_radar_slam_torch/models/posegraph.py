@@ -21,7 +21,7 @@ size after every GN iteration, to stop early.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,6 +50,20 @@ class GraphArrays(NamedTuple):
     loop_valid: torch.Tensor   # (L,) bool
     gps_meas: torch.Tensor     # (N, 3) world-frame position measurement
     gps_valid: torch.Tensor    # (N,) bool
+
+
+class FactorShard(NamedTuple):
+    """The factors one rank of the distributed solver evaluates, and the
+    collectives that merge the ranks (``parallel/dist_pgo.py`` builds it).
+    On one device there is none: every factor, and no collective."""
+
+    nodes: slice       # the odometry and GPS factors of these nodes
+    loops: slice       # these loop factors
+    reduce: Callable   # a partial matvec or b summed over the ranks
+    agree: Callable    # the largest of every rank's flag or step size
+
+
+_WHOLE = FactorShard(slice(None), slice(None), lambda x: x, None)
 
 
 def empty_graph(cfg: PgoConfig, device=DEFAULT_DEVICE, dtype=torch.float32) -> GraphArrays:
@@ -104,30 +118,35 @@ def _gps_whitening(cfg: PgoConfig, dtype, device) -> torch.Tensor:
 
 
 def residuals(delta: torch.Tensor, g: GraphArrays, loop_irls_w: torch.Tensor,
-              gps_irls_w: torch.Tensor, cfg: PgoConfig) -> torch.Tensor:
-    """All whitened factor residuals as one flat vector; delta (N, 6) is the
-    tangent update being linearized (0 at the linearization point).  Node 0
-    is the gauge: its delta is zeroed (exact prior)."""
+              gps_irls_w: torch.Tensor, cfg: PgoConfig,
+              shard: FactorShard = _WHOLE) -> torch.Tensor:
+    """The whitened residuals of ``shard``'s factors (default: all of them)
+    as one flat vector; delta (N, 6) is the tangent update being linearized
+    (0 at the linearization point), the IRLS weights those of the shard's
+    factors.  Node 0 is the gauge: its delta is zeroed (exact prior)."""
     n = g.poses.shape[0]
     dev, dt = g.poses.device, g.poses.dtype
     gauge = (torch.arange(n, device=dev) == 0)[:, None]
     delta = torch.where(gauge, torch.zeros_like(delta), delta)
     P = _apply_delta(g.poses, delta)
+    nodes, loops = shard.nodes, shard.loops
 
     # odometry chain factors: node k vs k-1
-    r_odom = _between_residual_masked(torch.roll(P, 1, dims=0), P, g.odom_meas,
-                                      g.odom_valid)
+    ov = g.odom_valid[nodes]
+    r_odom = _between_residual_masked(torch.roll(P, 1, dims=0)[nodes], P[nodes],
+                                      g.odom_meas[nodes], ov)
     r_odom = r_odom * _between_whitening(cfg, dt, dev)[None, :]
-    r_odom = r_odom * g.odom_valid[:, None]
+    r_odom = r_odom * ov[:, None]
 
     # loop factors (IRLS-weighted Cauchy)
-    r_loop = _between_residual_masked(P[g.loop_i], P[g.loop_j], g.loop_meas,
-                                      g.loop_valid) / cfg.loop_sigma
-    r_loop = r_loop * (g.loop_valid * torch.sqrt(loop_irls_w))[:, None]
+    lv = g.loop_valid[loops]
+    r_loop = _between_residual_masked(P[g.loop_i[loops]], P[g.loop_j[loops]],
+                                      g.loop_meas[loops], lv) / cfg.loop_sigma
+    r_loop = r_loop * (lv * torch.sqrt(loop_irls_w))[:, None]
 
     # GPS position factors (altitude-dominated by the sigma pattern)
-    r_gps = (P[:, :3, 3] - g.gps_meas) * _gps_whitening(cfg, dt, dev)
-    r_gps = r_gps * (g.gps_valid * torch.sqrt(gps_irls_w))[:, None]
+    r_gps = (P[nodes, :3, 3] - g.gps_meas[nodes]) * _gps_whitening(cfg, dt, dev)
+    r_gps = r_gps * (g.gps_valid[nodes] * torch.sqrt(gps_irls_w))[:, None]
     return torch.cat([r_odom.reshape(-1), r_loop.reshape(-1), r_gps.reshape(-1)])
 
 
@@ -136,9 +155,11 @@ def residuals(delta: torch.Tensor, g: GraphArrays, loop_irls_w: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _cg_solve(matvec: Callable, b: torch.Tensor, precond: Callable, iters: int,
-              tol: float) -> torch.Tensor:
+              tol: float, agree: Optional[Callable] = None) -> torch.Tensor:
     """Preconditioned CG on H x = b, stopping once |r|² / |b|² < tol² or
-    after ``iters`` iterations (the carry freezes from there on)."""
+    after ``iters`` iterations (the carry freezes from there on).  ``agree``
+    (the distributed solver's ``Mesh.agree_max``) turns the stop flag the
+    host reads into one every rank reads alike."""
     x = torch.zeros_like(b)
     r = b
     z = precond(r)
@@ -147,7 +168,8 @@ def _cg_solve(matvec: Callable, b: torch.Tensor, precond: Callable, iters: int,
     b2 = torch.clamp(torch.dot(b, b), min=1e-30)
     for it in range(iters):
         active = torch.dot(r, r) / b2 >= tol * tol
-        if it % _CG_CHECK_EVERY == 0 and it > 0 and not bool(active):
+        if it % _CG_CHECK_EVERY == 0 and it > 0 and not bool(
+                active if agree is None else agree(active)):
             break
         Hp = matvec(p)
         alpha = rz / torch.clamp(torch.dot(p, Hp), min=1e-30)
@@ -204,23 +226,30 @@ def _chain_precond(g: GraphArrays, cfg: PgoConfig, lam: float):
     return apply
 
 
-def _gn_step(g: GraphArrays, cfg: PgoConfig, lam: float):
+def _gn_step(g: GraphArrays, cfg: PgoConfig, lam: float, shard: FactorShard = _WHOLE):
     """One IRLS + damped GN step: recompute robust weights, solve the normal
     equations by CG through jvp/vjp matvecs, apply the tangent update.
-    Returns (graph, max |delta|)."""
+    Returns (graph, max |delta|).
+
+    A rank of the distributed solver passes its ``shard``: it evaluates only
+    those factors, the partial matvec and b are summed over the ranks, and
+    CG's stop flag is agreed, so that the CG state is the same on every
+    rank."""
     n = g.poses.shape[0]
     zero = torch.zeros((n, 6), dtype=g.poses.dtype, device=g.poses.device)
 
     # IRLS weights from the current (unweighted) robust-factor residuals
+    loops, nodes = shard.loops, shard.nodes
     r_loop_raw = _between_residual_masked(
-        g.poses[g.loop_i], g.poses[g.loop_j], g.loop_meas, g.loop_valid) / cfg.loop_sigma
+        g.poses[g.loop_i[loops]], g.poses[g.loop_j[loops]], g.loop_meas[loops],
+        g.loop_valid[loops]) / cfg.loop_sigma
     loop_w = 1.0 / (1.0 + torch.sum(r_loop_raw * r_loop_raw, dim=-1) / cfg.loop_cauchy_k ** 2)
-    gps_r = (g.poses[:, :3, 3] - g.gps_meas) * _gps_whitening(cfg, g.poses.dtype,
-                                                                g.poses.device)
+    gps_r = (g.poses[nodes, :3, 3] - g.gps_meas[nodes]) * _gps_whitening(cfg, g.poses.dtype,
+                                                                          g.poses.device)
     gps_w = 1.0 / (1.0 + torch.sum(gps_r ** 2, dim=-1) / cfg.gps_cauchy_k ** 2)
 
     def rfun(d):
-        return residuals(d, g, loop_w, gps_w, cfg)
+        return residuals(d, g, loop_w, gps_w, cfg, shard)
 
     r0, pullback = vjp(rfun, zero)
     # J v as the transpose of the pullback u -> Jᵀu (linear in u), taken once
@@ -230,14 +259,21 @@ def _gn_step(g: GraphArrays, cfg: PgoConfig, lam: float):
 
     def matvec(v):
         Jv = transpose(v.reshape(n, 6))[0]
-        return pullback(Jv)[0].reshape(-1) + lam * v
+        return shard.reduce(pullback(Jv)[0].reshape(-1)) + lam * v
 
-    b = -pullback(r0)[0].reshape(-1)
+    b = -shard.reduce(pullback(r0)[0].reshape(-1))
     if cfg.preconditioner == "chain":
         precond = _chain_precond(g, cfg, lam)
-    else:
+    elif shard is _WHOLE:
         precond = _diag_precond(g, loop_w, gps_w, cfg, lam)
-    delta = _cg_solve(matvec, b, precond, cfg.cg_iters, cfg.cg_tol).reshape(n, 6)
+    else:
+        # a rank holds only its own factors' weights: the distributed
+        # solver's Jacobi is the odometry-dominated diagonal, as JAX's
+        s2 = _between_whitening(cfg, g.poses.dtype, g.poses.device) ** 2
+        dinv = 1.0 / (2.0 * s2.repeat(n) + lam)
+        precond = lambda v: dinv * v   # noqa: E731
+    delta = _cg_solve(matvec, b, precond, cfg.cg_iters, cfg.cg_tol,
+                      agree=shard.agree).reshape(n, 6)
 
     idx = torch.arange(n, device=g.poses.device)
     active = (idx > 0) & (idx < g.num_nodes)
@@ -245,12 +281,13 @@ def _gn_step(g: GraphArrays, cfg: PgoConfig, lam: float):
     return g._replace(poses=_apply_delta(g.poses, delta)), torch.max(torch.abs(delta))
 
 
-def solve(g: GraphArrays, cfg: PgoConfig) -> GraphArrays:
+def solve(g: GraphArrays, cfg: PgoConfig, shard: FactorShard = _WHOLE) -> GraphArrays:
     """Full robust solve: up to cfg.gn_iters outer IRLS/GN iterations,
-    stopping once the applied tangent step falls below _GN_STEP_TOL."""
+    stopping once the applied tangent step (agreed over the ranks of a
+    ``shard``) falls below _GN_STEP_TOL."""
     for _ in range(cfg.gn_iters):
-        g, step = _gn_step(g, cfg, cfg.lm_lambda0)
-        if float(step) < _GN_STEP_TOL:
+        g, step = _gn_step(g, cfg, cfg.lm_lambda0, shard)
+        if float(step if shard.agree is None else shard.agree(step)) < _GN_STEP_TOL:
             break
     return g
 
@@ -266,18 +303,28 @@ def bucket_size(capacity: int, num_nodes: int) -> int:
     return min(capacity, max(64, 1 << (max(int(num_nodes), 1) - 1).bit_length()))
 
 
-def make_bucketed_solver(cfg: PgoConfig):
+def make_bucketed_solver(cfg: PgoConfig, solve_poses: Optional[Callable] = None,
+                         min_bucket: int = 1):
     """``solver(g, num_nodes, num_loops) -> GraphArrays`` that solves on the
     active power-of-two prefix of the node arrays (loops stay at full
-    padding) and writes the solved poses back into the prefix."""
+    padding) and writes the solved poses back into the prefix.
+
+    ``solve_poses(g) -> poses`` solves a prefix (default: ``solve``).  The
+    distributed solver passes its own with ``min_bucket`` the mesh size:
+    the bucket is at least that, and a capacity or bucket the mesh size
+    does not divide solves at full capacity (JAX's mesh rule)."""
+    if solve_poses is None:
+        solve_poses = lambda g: solve(g, cfg).poses   # noqa: E731
 
     def solver(g: GraphArrays, num_nodes: int, num_loops: int) -> GraphArrays:
-        nb = bucket_size(g.poses.shape[0], num_nodes)
+        n = g.poses.shape[0]
+        nb = max(bucket_size(n, num_nodes), min_bucket)
+        if n % min_bucket or nb % min_bucket:
+            nb = n
         gs = g._replace(poses=g.poses[:nb], odom_meas=g.odom_meas[:nb],
                         odom_valid=g.odom_valid[:nb], gps_meas=g.gps_meas[:nb],
                         gps_valid=g.gps_valid[:nb])
-        solved = solve(gs, cfg).poses
-        return g._replace(poses=torch.cat([solved, g.poses[nb:]], dim=0))
+        return g._replace(poses=torch.cat([solve_poses(gs), g.poses[nb:]], dim=0))
 
     return solver
 

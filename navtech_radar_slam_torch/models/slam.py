@@ -43,8 +43,19 @@ segment no read but the T-slot ICP's "every slot converged" check.
 
 ``timers`` (a ``utils.profiling.StageTimers``) times the JAX engine's
 stages at the same sites; ``loop_debug_dir`` makes every loop decision
-that found a candidate write ``loop_<k>_<accepted|rejected>.npz``.  Not
-ported yet: the mesh paths.
+that found a candidate write ``loop_<k>_<accepted|rejected>.npz``.
+
+``mesh`` (a ``parallel.mesh.Mesh`` of size > 1, one engine per rank) runs
+the JAX engine's mesh paths: each rank holds only its block of descriptor
+bank rows (a write lands on the rank that owns the row), the segments and
+the per-keyframe path search the split bank with ``parallel.sharded_bank``
+(the per-keyframe path inserts, then searches, as JAX's
+``kf_insert_split``), and the solves run ``parallel.dist_pgo``'s bucketed
+distributed solver.  Clouds, ring keys and the graph stay replicated, and
+every rank runs the odometry and the loop verification.  The host reads
+that steer collectives read rank 0's values: the odometry packet, the
+chunk's packed fetch and the decision fetch are broadcast from rank 0, and
+the solver agrees its stop flags and broadcasts its poses.
 """
 
 from __future__ import annotations
@@ -250,12 +261,26 @@ def _verify_candidate_multi(cands: sc_ops.LoopCandidate, clouds, clouds_valid, p
     return res
 
 
+def _write_rows(bank: torch.Tensor, bank_start: int, k0: int, rows: torch.Tensor) -> None:
+    """Write ``rows`` at global rows k0, k0 + 1, ... of a bank whose row 0 is
+    global row ``bank_start`` (a mesh rank's block; 0 for the whole bank),
+    keeping only the rows it holds."""
+    lo = max(k0, bank_start)
+    hi = min(k0 + rows.shape[0], bank_start + bank.shape[0])
+    if lo < hi:
+        bank[lo - bank_start:hi - bank_start] = rows[lo - k0:hi - k0]
+
+
 def _kf_step_body(cfg: SlamConfig, clouds, clouds_valid, bank, ring_keys,
                   g: pg.GraphArrays, k: int, xy, valid, odo_pose_se2, prev_odo_se2,
-                  has_odom: bool, do_detect: bool, session_start: int):
+                  has_odom: bool, do_detect: bool, session_start: int,
+                  bank_start: int = 0, detect=None):
     """One keyframe: voxel filter, ScanContext descriptor, bank / cloud /
-    graph insert (in place, at slot ``k``), then on ``do_detect`` loop
-    detection and candidate verification.
+    graph insert (in place, at slot ``k``; the bank row only where
+    ``bank`` holds it, its row 0 being global row ``bank_start``), then on
+    ``do_detect`` loop detection and candidate verification.  ``detect``
+    (desc, bank, num_kf) -> LoopCandidate replaces the whole-bank
+    detectors (the mesh engine's sharded search).
 
     Returns (clouds, clouds_valid, bank, ring_keys, g, desc, cand, res)."""
     valid = voxel_dedup_mask(xy, valid, cfg.keyframes.keyframe_voxel_size)
@@ -263,7 +288,7 @@ def _kf_step_body(cfg: SlamConfig, clouds, clouds_valid, bank, ring_keys,
                                    valid, cfg.scancontext)
     clouds[k] = xy
     clouds_valid[k] = valid
-    bank[k] = desc
+    _write_rows(bank, bank_start, k, desc[None])
     ring_keys[k] = sc_ops.ring_key(desc)
 
     # iSAM2 init semantics: the optimized previous pose composed with the
@@ -284,7 +309,9 @@ def _kf_step_body(cfg: SlamConfig, clouds, clouds_valid, bank, ring_keys,
         return (clouds, clouds_valid, bank, ring_keys, g, desc,
                 _empty_candidate(dev), _empty_icp_result(dev))
     poses_se2 = geo.se3_to_se2(g.poses)
-    if cfg.scancontext.search_mode == "ringkey":
+    if detect is not None:
+        cand = detect(desc, bank, num_kf)
+    elif cfg.scancontext.search_mode == "ringkey":
         cand = sc_ops.detect_loop_ringkey(desc, bank, ring_keys, num_kf, cfg.scancontext)
     else:
         cand = sc_ops.detect_loop(desc, bank, num_kf, cfg.scancontext)
@@ -297,7 +324,8 @@ def _kf_segment_body(cfg: SlamConfig, T: int, with_detect: bool, clouds, clouds_
                      bank, ring_keys, g: pg.GraphArrays, k0: int, m: int,
                      sel: torch.Tensor, xys: torch.Tensor, valids: torch.Tensor,
                      odo_poses: torch.Tensor, prev_odos: torch.Tensor, has_odoms: List[bool],
-                     gps_alts: torch.Tensor, gps_has: torch.Tensor, session_start: int):
+                     gps_alts: torch.Tensor, gps_has: torch.Tensor, session_start: int,
+                     bank_start: int = 0, detect_multi=None):
     """One segment of T keyframe slots, k0 .. k0 + T - 1, of which the first
     ``m`` are real (counterpart of the program ``_make_kf_segment`` builds):
     batched inserts, then, with ``with_detect``, detection and verification
@@ -318,6 +346,11 @@ def _kf_segment_body(cfg: SlamConfig, T: int, with_detect: bool, clouds, clouds_
     iteration plus the final fitness; no host read but the T-slot ICP's
     convergence check.
 
+    On a mesh, ``bank`` is the rank's block (row 0 = global row
+    ``bank_start``) and ``detect_multi`` (queries, bank, num_valids) ->
+    LoopCandidate is the sharded search, given each active slot's
+    keyframe count (the inactive tail repeats the last active slot's).
+
     Returns (clouds, clouds_valid, bank, ring_keys, g, cands, ress,
     last_pose), cands and ress with (T,) leaves."""
     dev = xys.device
@@ -330,7 +363,7 @@ def _kf_segment_body(cfg: SlamConfig, T: int, with_detect: bool, clouds, clouds_
     rows = slice(k0, k0 + T)
     clouds[rows] = q_xy
     clouds_valid[rows] = q_valid
-    bank[rows] = descs
+    _write_rows(bank, bank_start, k0, descs)
     ring_keys[rows] = sc_ops.ring_key(descs)
 
     # graph rows: odometry measurements and chained pose inits
@@ -358,7 +391,9 @@ def _kf_segment_body(cfg: SlamConfig, T: int, with_detect: bool, clouds, clouds_
     if with_detect:
         poses_se2 = geo.se3_to_se2(g.poses)
         num_kfs = k0 + 1 + torch.arange(T, device=dev)
-        if cfg.scancontext.search_mode == "ringkey":
+        if detect_multi is not None:
+            cands = detect_multi(descs, bank, [k0 + min(t, max(m, 1) - 1) + 1 for t in range(T)])
+        elif cfg.scancontext.search_mode == "ringkey":
             cands = sc_ops.detect_loop_ringkey_multi(descs, bank, ring_keys, k0,
                                                      cfg.scancontext)
         else:
@@ -413,19 +448,36 @@ def _pack_decision(cand: sc_ops.LoopCandidate, res: icp_ops.IcpResult) -> torch.
 
 
 class SlamEngine:
-    """Host orchestrator of the per-scan SLAM path on one ``device``."""
+    """Host orchestrator of the SLAM paths on one ``device``, or on one rank
+    of a ``mesh`` (``parallel.mesh.Mesh``; its device unless ``device``
+    names the same one).  A mesh of size > 1 needs ``max_keyframes`` to
+    divide its size; a mesh of size 1 runs the single-device engine."""
 
     def __init__(self, cfg: Optional[SlamConfig] = None,
-                 device: torch.device | str = DEFAULT_DEVICE):
+                 device: Optional[torch.device | str] = None, mesh=None):
         self.cfg = c = cfg or SlamConfig()
+        if device is None:
+            device = mesh.device if mesh is not None else DEFAULT_DEVICE
         self.device = dev = resolve_device(device)
+        #: the mesh as given; ``_sharded``: a mesh of more than one rank
+        self.mesh = mesh
+        self._sharded = mesh is not None and mesh.size > 1
+        if mesh is not None and torch.device(mesh.device) != dev:
+            raise ValueError(f"SlamEngine: device {dev} is not the mesh's {mesh.device}")
+        if self._sharded and c.keyframes.max_keyframes % mesh.size != 0:
+            raise ValueError("max_keyframes must divide the mesh size")
         self.odometry = RadarOdometry(c, device=dev)
+        if self._sharded:
+            self.odometry.agree = mesh.broadcast
 
         K, M = c.features.max_features, c.keyframes.max_keyframes
         R, S = c.scancontext.num_ring, c.scancontext.num_sector
         self.clouds = torch.zeros((M, K, 2), device=dev)
         self.clouds_valid = torch.zeros((M, K), dtype=torch.bool, device=dev)
-        self.bank = torch.zeros((M, R, S), device=dev)
+        #: the descriptor bank: on a mesh this rank's block of rows, global
+        #: row ``_bank_start`` first
+        self._bank_start = mesh.block(M)[0] if self._sharded else 0
+        self.bank = torch.zeros((M // mesh.size if self._sharded else M, R, S), device=dev)
         self.ring_keys = torch.zeros((M, R), device=dev)
         self.kf_times: List[float] = []
 
@@ -488,9 +540,39 @@ class SlamEngine:
     def _make_solvers(self):
         # fast per-keyframe refine (one GN iteration) vs full solve after
         # new loops: the iSAM2-like warm-started pattern
-        self._solve_fast = pg.make_bucketed_solver(
-            dataclasses.replace(self.cfg.pgo, gn_iters=1))
-        self._solve_full = pg.make_bucketed_solver(self.cfg.pgo)
+        fast = dataclasses.replace(self.cfg.pgo, gn_iters=1)
+        if self._sharded:
+            from navtech_radar_slam_torch.parallel import dist_pgo, sharded_bank
+
+            self._solve_fast = dist_pgo.make_bucketed_distributed_solver(self.mesh, fast)
+            self._solve_full = dist_pgo.make_bucketed_distributed_solver(self.mesh,
+                                                                         self.cfg.pgo)
+            args = (self.mesh, self.cfg.scancontext, self.cfg.parallel.shard_top_k)
+            self._sharded_detect = sharded_bank.make_sharded_loop_detector(*args)
+            self._sharded_detect_batch = sharded_bank.make_sharded_loop_detector_batch(*args)
+        else:
+            self._solve_fast = pg.make_bucketed_solver(fast)
+            self._solve_full = pg.make_bucketed_solver(self.cfg.pgo)
+            self._sharded_detect = self._sharded_detect_batch = None
+
+    def _agree(self, x: torch.Tensor) -> torch.Tensor:
+        """A packet the host is about to read: rank 0's on a mesh."""
+        return self.mesh.broadcast(x) if self._sharded else x
+
+    def bank_whole(self) -> torch.Tensor:
+        """The whole descriptor bank (M, R, S); on a mesh gathered from every
+        rank's block (a collective: every rank calls it)."""
+        return self.mesh.gather_rows(self.bank) if self._sharded else self.bank
+
+    def set_bank_whole(self, bank: torch.Tensor) -> None:
+        """Hold ``bank`` (M, R, S) on the engine's device, or on a mesh this
+        rank's block of it (a copy, so that the whole one is freed)."""
+        bank = bank.to(self.device)
+        if self._sharded:
+            lo, hi = self.mesh.block(bank.shape[0])
+            self._bank_start = lo
+            bank = bank[lo:hi].clone()
+        self.bank = bank
 
     # -- multi-session ------------------------------------------------------
 
@@ -524,7 +606,7 @@ class SlamEngine:
 
         self.clouds[:n] = dev("clouds", n)
         self.clouds_valid[:n] = dev("clouds_valid", n, torch.bool)
-        self.bank[:n] = dev("bank", n)
+        _write_rows(self.bank, self._bank_start, 0, dev("bank", n))
         self.ring_keys[:n] = dev("ring_keys", n)
         self.kf_times = [float(x) for x in np.asarray(z["kf_times"][:n])]
         poses = dev("graph_poses", n)
@@ -713,7 +795,7 @@ class SlamEngine:
                 if isinstance(pk, torch.Tensor)]
         parts = [packed_odo] + [self._pending_loops[i][2] for i in pend]
         with self._stage("odo_fetch"):
-            host = torch.cat(parts).cpu().numpy()
+            host = self._agree(torch.cat(parts)).cpu().numpy()
         sizes = np.cumsum([x.numel() for x in parts])[:-1]
         p, *decisions = np.split(host, sizes)
         for i, h in zip(pend, decisions):
@@ -774,12 +856,17 @@ class SlamEngine:
             pgo=dataclasses.replace(c.pgo, max_nodes=2 * c.pgo.max_nodes,
                                     max_loop_edges=2 * c.pgo.max_loop_edges),
         )
+        # on a mesh every block boundary moves: the bank is gathered whole,
+        # padded, and each rank keeps its new block
         for name in ("clouds", "clouds_valid", "bank", "ring_keys"):
-            old = getattr(self, name)
+            old = self.bank_whole() if name == "bank" else getattr(self, name)
             new = torch.zeros((2 * old_cap,) + old.shape[1:], dtype=old.dtype,
                               device=old.device)
             new[:old_cap] = old
-            setattr(self, name, new)
+            if name == "bank":
+                self.set_bank_whole(new)
+            else:
+                setattr(self, name, new)
         self.graph.grow(c.pgo.max_nodes, c.pgo.max_loop_edges)
         self._make_solvers()
 
@@ -923,7 +1010,8 @@ class SlamEngine:
                     clouds, clouds_valid, bank, ring_keys, g, k0, 0,
                     torch.zeros(tp, dtype=torch.int64, device=dev), xys, valids, zeros3,
                     zeros3, [False] * tp, torch.zeros(tp, device=dev),
-                    torch.zeros(tp, dtype=torch.bool, device=dev), self.session_start)
+                    torch.zeros(tp, dtype=torch.bool, device=dev), self.session_start,
+                    self._bank_start, self._sharded_detect_batch)
             _pack_decision(_empty_candidate(dev, (tp,)), _empty_icp_result(dev, (tp,)))
             if tp >= top:
                 break
@@ -934,11 +1022,14 @@ class SlamEngine:
         if full and live_outputs:
             _render_map(clouds, clouds_valid, g.poses, 1, c.map.keyframe_stride)
         if full:
-            # the per-keyframe path (first keyframe, GPS, growth)
+            # the per-keyframe path (first keyframe, GPS, growth); on a mesh
+            # with its sharded search and verification (JAX's
+            # warm_mesh_fallback)
             zero3 = torch.zeros(3, device=dev)
             _kf_step_body(c, clouds, clouds_valid, bank, ring_keys, g,
                           min(self.num_keyframes, cap_rows - 1), xys[0], valids[0], zero3,
-                          zero3, False, False, self.session_start)
+                          zero3, False, self._sharded and c.do_slam, self.session_start,
+                          self._bank_start, self._sharded_detect)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
@@ -998,7 +1089,8 @@ class SlamEngine:
              ress, pose_dev) = prog(
                 self.clouds, self.clouds_valid, self.bank, self.ring_keys, self.graph.g, k0,
                 m, dev(sel), xys, valids, dev(odo_arr), dev(prev_arr), has, dev(gps_arr),
-                dev(gps_has), self.session_start)
+                dev(gps_has), self.session_start, self._bank_start,
+                self._sharded_detect_batch)
         self.num_keyframes = k0 + m
         self.graph.num_nodes = k0 + m
         self.last_kf_pose = np.asarray(prev_pose, np.float64).copy()
@@ -1034,7 +1126,16 @@ class SlamEngine:
             and (k + 1) % c.scancontext.detect_every_n_keyframes == 0
             and (k + 1) > c.scancontext.num_exclude_recent
         )
-        self.dispatch_counts["kf_step"] += 1
+        if self._sharded:
+            # JAX's mesh path: the insert (voxel mask, descriptor, insert),
+            # then the sharded search and the verification
+            self.dispatch_counts["kf_insert_split"] += 3
+            if do_detect:
+                self.dispatch_counts["sharded_detect"] += 1
+                self.dispatch_counts["verify"] += 1
+            self.dispatch_counts["pose_slice"] += 1
+        else:
+            self.dispatch_counts["kf_step"] += 1
         f32 = dict(dtype=torch.float32, device=self.device)
         with self._stage("kf_step"):
             (self.clouds, self.clouds_valid, self.bank, self.ring_keys, self.graph.g,
@@ -1042,7 +1143,7 @@ class SlamEngine:
                 c, self.clouds, self.clouds_valid, self.bank, self.ring_keys,
                 self.graph.g, k, xy, valid, torch.tensor(odo_pose, **f32),
                 torch.tensor(self.last_kf_pose, **f32), has_odom, do_detect,
-                self.session_start)
+                self.session_start, self._bank_start, self._sharded_detect)
             pose_dev = geo.se3_to_se2(self.graph.g.poses[k])
         self.graph.num_nodes = k + 1
         self.last_kf_pose = odo_pose.copy()
@@ -1070,7 +1171,8 @@ class SlamEngine:
                 self._refine_graph(full=False)
                 refined = self.graph.num_loops > 0
         if refined:
-            self.dispatch_counts["pose_slice"] += 1
+            if not self._sharded:   # counted with the mesh path's insert
+                self.dispatch_counts["pose_slice"] += 1
             pose_dev = geo.se3_to_se2(self.graph.g.poses[k])
         self._cur_pose_dev = pose_dev
         self._cur_pose = None
@@ -1111,7 +1213,7 @@ class SlamEngine:
         self.dispatch_counts["decision_fetch"] += len(dev)
         with self._stage("loop_fetch"):
             if dev:
-                host = torch.cat(dev).cpu().numpy()
+                host = self._agree(torch.cat(dev)).cpu().numpy()
                 fetched = iter(np.split(host, np.cumsum([pk.numel() for pk in dev])[:-1]))
         decisions = []   # (k, packed vector, slot)
         for ks, slots, pk in pending:

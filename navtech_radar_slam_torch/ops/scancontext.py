@@ -312,24 +312,19 @@ def detect_loop_multi(queries: torch.Tensor, bank_desc: torch.Tensor, k0: int, m
                       torch.gather(shift, 1, pick)[:, 0], cfg)
 
 
-def detect_loop_ringkey_multi(queries: torch.Tensor, bank_desc: torch.Tensor,
-                              bank_ring_keys: torch.Tensor, k0: int,
-                              cfg: ScanContextConfig) -> LoopCandidate:
-    """``detect_loop_ringkey`` for the T keyframes k0 .. k0 + T - 1 of a
-    segment against the final bank (slot t sees num_valid = k0 + t + 1):
-    each slot's ring-key prefilter gathers its own ``num_candidates`` rows,
-    so the shift distances are one K2-T call on a (T, k, R, S) bank, and the
-    ratio window (``search_ratio``) is taken per slot.  Returns a
-    LoopCandidate of (T,) leaves."""
-    t = queries.shape[0]
-    dev = bank_desc.device
-    bounds = torch.as_tensor([ringkey_searchable_bound(k0 + s + 1, cfg) for s in range(t)],
-                             device=dev)
-    searchable = torch.arange(bank_desc.shape[0], device=dev)[None, :] < bounds[:, None]
+def ringkey_two_stage_best_multi(queries: torch.Tensor, bank_desc: torch.Tensor,
+                                 bank_ring_keys: torch.Tensor, searchable: torch.Tensor,
+                                 k: int, cfg: ScanContextConfig
+                                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``ringkey_two_stage_best`` for T queries (T, R, S) with per-slot
+    searchable masks (T, N): each slot's ring-key prefilter gathers its own
+    ``k`` rows, so the shift distances are one K2-T call on a (T, k, R, S)
+    bank, and the ratio window (``search_ratio``) is taken per slot.
+    Returns (best row index, best distance, best shift), each (T,)."""
     qkey = ring_key(queries)                                        # (T, R)
     d2 = torch.sum((bank_ring_keys[None] - qkey[:, None, :]) ** 2, dim=-1)   # (T, N)
     d2 = torch.where(searchable, d2, torch.full_like(d2, float("inf")))
-    _, cand = top_k(-d2, cfg.num_candidates)                        # (T, k)
+    _, cand = top_k(-d2, k)                                         # (T, k)
     cand_desc = bank_desc[cand]                                     # (T, k, R, S)
     dist = sc_shift_distance_matrix_multi(queries, cand_desc)
     if cfg.search_ratio > 0:
@@ -339,5 +334,21 @@ def detect_loop_ringkey_multi(queries: torch.Tensor, bank_desc: torch.Tensor,
     dist = torch.where(torch.isfinite(torch.gather(d2, 1, cand)), dist,
                        torch.full_like(dist, float("inf")))
     j = torch.argmin(dist, dim=-1)[:, None]
-    return _candidate(torch.gather(cand, 1, j)[:, 0], torch.gather(dist, 1, j)[:, 0],
-                      torch.gather(shift, 1, j)[:, 0], cfg)
+    return (torch.gather(cand, 1, j)[:, 0], torch.gather(dist, 1, j)[:, 0],
+            torch.gather(shift, 1, j)[:, 0])
+
+
+def detect_loop_ringkey_multi(queries: torch.Tensor, bank_desc: torch.Tensor,
+                              bank_ring_keys: torch.Tensor, k0: int,
+                              cfg: ScanContextConfig) -> LoopCandidate:
+    """``detect_loop_ringkey`` for the T keyframes k0 .. k0 + T - 1 of a
+    segment against the final bank (slot t sees num_valid = k0 + t + 1),
+    through ``ringkey_two_stage_best_multi``: one K2-T call for every slot.
+    Returns a LoopCandidate of (T,) leaves."""
+    t = queries.shape[0]
+    dev = bank_desc.device
+    bounds = torch.as_tensor([ringkey_searchable_bound(k0 + s + 1, cfg) for s in range(t)],
+                             device=dev)
+    searchable = torch.arange(bank_desc.shape[0], device=dev)[None, :] < bounds[:, None]
+    return _candidate(*ringkey_two_stage_best_multi(
+        queries, bank_desc, bank_ring_keys, searchable, cfg.num_candidates, cfg), cfg)

@@ -95,7 +95,9 @@ def slam_state_to_numpy(eng: "SlamEngine") -> Dict:
     eng._flush_pending_loop()
     g = eng.graph.g
     d = {name: getattr(eng, name).cpu().numpy()
-         for name in ("clouds", "clouds_valid", "bank", "ring_keys")}
+         for name in ("clouds", "clouds_valid", "ring_keys")}
+    # on a mesh the bank is gathered whole (every rank takes part)
+    d["bank"] = eng.bank_whole().cpu().numpy()
     d.update({f"graph_{name}": getattr(g, name).cpu().numpy() for name in _GRAPH_KEYS})
     # the JAX graph's loop indices are int32
     d["graph_loop_i"] = d["graph_loop_i"].astype(np.int32)
@@ -141,7 +143,7 @@ def load_slam_state(eng: "SlamEngine", d: Dict) -> None:
 
     eng.clouds = dev(d["clouds"], torch.float32)
     eng.clouds_valid = dev(d["clouds_valid"], torch.bool)
-    eng.bank = dev(d["bank"], torch.float32)
+    eng.set_bank_whole(dev(d["bank"], torch.float32))   # a mesh rank keeps its block
     eng.ring_keys = dev(d["ring_keys"], torch.float32)
     dtypes = {"odom_valid": torch.bool, "loop_valid": torch.bool, "gps_valid": torch.bool,
               "loop_i": torch.int64, "loop_j": torch.int64}

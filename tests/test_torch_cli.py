@@ -3,9 +3,10 @@ JAX CLI, mirroring tests/test_cli.py: both CLIs on the same written 6-scan
 sequence per scan and with ``--chunk 4`` (the same keyframes, TUM
 positions within 5e-3 m, the same stats.json apart from the time fields),
 ``--resume`` (:76), a malformed gps.csv (:319); and the port's own rules:
-the pending loops are committed before stats.json is written, ``--mesh 2``
-and ``--device cuda`` without a card raise, ``--save_plot`` without
-matplotlib fails at argument time.
+the pending loops are committed before stats.json is written, ``--mesh 2
+--device cuda`` with fewer than two cards and ``--device cuda`` without a
+card raise, ``--save_plot`` without matplotlib fails at argument time.
+(``--mesh 2 --device cpu`` runs in test_torch_distributed_multiprocess.py.)
 
 The sequences are written by the port's ``make_sequence.write_sequence``
 (full-size MulRan PNGs); the engine runs at ``test_torch_slam.small_cfg``
@@ -118,10 +119,15 @@ def test_cli_survives_malformed_gps(seq, tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(seq, tmp_path, monkeypatch):
-    """``--mesh 2`` raises; ``--device cuda`` raises where there is no card,
-    and never runs on the CPU instead."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcli.main(_argv(seq, "short", tmp_path / "m", "--device", "cpu", "--mesh", "2"))
+    """``--mesh 2 --device cuda`` raises before launching where fewer than
+    two cards are visible (NCCL needs one per rank), naming the count;
+    ``--device cuda`` raises where there is no card, and never runs on the
+    CPU instead."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="1 visible"):
+        tcli.main(_argv(seq, "short", tmp_path / "m", "--device", "cuda", "--mesh", "2"))
+    assert not (tmp_path / "m").exists()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tcli.main(_argv(seq, "short", tmp_path / "c", "--device", "cuda"))

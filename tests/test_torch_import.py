@@ -41,6 +41,12 @@ MODULES = [
     "navtech_radar_slam_torch.cli",
     "navtech_radar_slam_torch.runtime",
     "navtech_radar_slam_torch.runtime.loader",
+    "navtech_radar_slam_torch.parallel",
+    "navtech_radar_slam_torch.parallel.mesh",
+    "navtech_radar_slam_torch.parallel.launch",
+    "navtech_radar_slam_torch.parallel.sharded_bank",
+    "navtech_radar_slam_torch.parallel.dist_pgo",
+    "navtech_radar_slam_torch.parallel.sharded_odometry",
 ]
 
 
