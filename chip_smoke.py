@@ -36,21 +36,33 @@ Phases, in order; any failure ends the run with a non-zero exit:
      as ring-key mode makes), and T = 1, bit-equal to K2;
   9. K3-T (one launch for T ICP problems) against its plain version: 16
      slots at (1024, 8192) with masks that differ per slot, every target
-     tied across the chunks, and T = 1, bit-equal to K3: the same indices
-     and d2, exactly;
+     tied across the chunks, and with its slot mask: half the slots masked
+     off, every slot masked off, and valid targets a prefix of each slot
+     (as submaps pack them) with half the slots masked off; and T = 1,
+     bit-equal to K3: the same indices and d2, exactly;
  10. the full-SLAM path per scan: SlamEngine(SlamConfig()) over 60
      motion-distorted full-size scans of a circuit, every launch counter
      reset just before and read just after; checks the keyframes, K2 once
      per detecting keyframe on the searchable bank prefix (max(keyframes -
      30, 1) rows), K3 at least twice per verified candidate, >= 12 accepted
      loops, a full pose-graph solve, ATE < 1 % of the path and a finite map;
+     prints each full pose-graph solve's ms and, on the final graph, one
+     CG matvec of its normal equations: its device launches (a CUDA graph
+     capture; fails at 100 or more; the earlier double-vjp matvec took
+     1206), its device ms (replays of the capture) and eager ms, and the
+     once-per-GN-step linearization's;
  11. the full-SLAM path streamed: the same 60 scans through begin_chunk /
      finish_chunk, chunks of 16, two in flight, then current_pose(), every
      counter reset just before and read just after; checks 60 keyframes,
      a segment, K2-T once per segment that detects, K3-T once per T-slot
      ICP iteration plus the final fitness, K2 and K3 only for the keyframes
      sent down the per-keyframe path, the same loop, solve and ATE checks,
-     and prints its loops beside the per-scan run's;
+     and prints its loops beside the per-scan run's, each full solve's ms,
+     and its K3-T launches replayed from their recorded inputs: the slots
+     each computed and their valid targets, the device ms summed over the
+     launches as run and with every slot computed, beside the earlier
+     design's (every slot and pair at 0.07130 ms a launch, PERF.md), and
+     the valid pairs' bound and instruction floor;
  12. K1 x B (one launch for B scans) against its plain version, exactly
      (the same peak positions and values in every scan): B = 1, bit-equal
      to K1; B = 3; B = 64 full-size scans (the 60 of the SLAM paths and 4
@@ -66,7 +78,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
      against RadarOdometry run on that stream alone (the same ok, rel_pose
      within 1e-3 m / 1e-4 rad), and, on the first step's matches, each
      stream's spectral scores under torch.func.vmap bit-equal to that
-     stream's alone; then two more timed windows, and prints the
+     stream's alone; the 64 streams in one step against the same streams
+     in two steps of 32 (as two mesh ranks run them), every leaf of the
+     seed and the step bit-equal (rel_pose, ok and the de-skewed xy among
+     them), and on a difference the first op whose inputs agree and whose
+     outputs differ, recorded op by op; then two more timed windows, and prints the
      aggregate frames/s and the median, min and max step ms;
  14. the command line, navtech_radar_slam_torch.cli.main, in this process on
      MulRan sequences that the port's make_sequence writes into a temporary
@@ -81,7 +97,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      three; prints the median, min and max ms per scan of the two decoders
      on one thread, taken in turns.  Every CLI call must read with the
      native loader (the banner's "native loader"), and prints the wait in
-     NativeRadarLoader.__next__ per scan.  Every counter is reset just before
+     NativeRadarLoader.__next__ per scan and each full pose-graph solve's
+     ms (prewarm's excluded).  Every counter is reset just before
      each CLI call and read just after.  (a) --chunk 16 --prewarm true
      --pack4 true --checkpoint_every 35 --loop_debug_dir --use_gps true
      --live true on the 70 scans at SlamConfig(): 70 scans, no odometry
@@ -95,7 +112,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      checkpoint's keyframes.  (c) per scan, --prior_session on (a)'s
      final.npz, the 20 scans: an inter-session loop, rebased, and the second
      session's keyframes within 1.5 m on average of their ground truth in
-     the first session's frame;
+     the first session's frame.  Then the three calls' K3-T launches
+     (prewarm's included) replayed as phase 11's are, with how many computed
+     slots had fewer valid targets than the submap holds;
  15. the multi-device layer (navtech_radar_slam_torch/parallel/): one
      NCCL all_reduce and all_gather through the port's Mesh at world size
      1 (with NCCL's version), and what NCCL says to two ranks on cuda:0
@@ -109,7 +128,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
      within 5e-2 m of the single-device solve, which must move them 10x
      that), the sharded odometry step at B = 64 (32 streams a rank, one
      K1 x 32 launch a step; every leaf bit-equal to the one-device step on
-     the rank's streams, rel_pose within 1e-4 of the 64-stream step), and the
+     the rank's streams and to the same streams of the 64-stream step), and the
      mesh engine streamed over the 60 SLAM scans at SlamConfig() (every
      counter reset just before and read just after; the streamed run's
      loops within the band, positions within 0.1 m, ATE < 1 % of the
@@ -128,8 +147,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      capture of the call: exactly one kernel node and nothing else.
      K2's report is at the 4096-row all-live bank; lines before it give
      K2's device ms and bound at the SLAM run's largest prefix (30 rows)
-     and at the 400-live bank, and K2-T's at 16 x 400 rows.  K2-T's report
-     is at 16 queries x the 30-row prefix, K3-T's at 16 x (1024, 8192),
+     and at the 400-live bank, K2-T's at 16 x 400 rows, and K3-T's with
+     half the slots masked off.  K3 and K3-T print an instruction floor
+     beside the bound (their 5 operations a pair are separate FSUB / FMUL
+     / FADD, issued at half the FMA-counted peak), and K3-T the earlier
+     design's time.  K2-T's report
+     is at 16 queries x the 30-row prefix, K3-T's at 16 x (1024, 8192)
+     with every slot computed,
      K1 x B's at the 64 scans of phase 12.  Last, one RadarOdometry step
      and one batched step under torch.profiler: wall ms, device kernels,
      and the device's busy ms and share.
@@ -163,18 +187,23 @@ import subprocess
 import sys
 import tempfile
 import time
+import collections
 from collections import defaultdict
 
 import numpy as np
 import torch
+import torch.utils._python_dispatch
+import torch.utils._pytree
 
 from navtech_radar_slam_torch.config import SlamConfig
 from navtech_radar_slam_torch.data import RadarSimulator, pack4
+from navtech_radar_slam_torch.models import posegraph as pg_mod
 from navtech_radar_slam_torch.models import slam as slam_mod
 from navtech_radar_slam_torch.models.odometry import (
     RadarOdometry, decode_power, default_azimuths, extract_scan_features_batched,
-    make_batched_odometry_step, match_feature_pair)
+    make_batched_odometry_step, match_feature_pair, register_step)
 from navtech_radar_slam_torch.ops import cen2019, icp, registration, scancontext
+from navtech_radar_slam_torch.ops.features import constellation_descriptors
 from navtech_radar_slam_torch.ops.kernels import cen_peaks, nn_dist, sc_corr
 from navtech_radar_slam_torch.utils.geometry import se2_between_np, se2_mul_np, se2_to_se3_np
 
@@ -201,6 +230,16 @@ CLI_SCANS_B = 20     # the second session, from the circuit's first pose
 #: the CLI run's ATE bound, a share of the path (PERF.md §2's full-SLAM rule)
 CLI_ATE_BOUND_FRAC = 0.01
 DEVICE_LAUNCHES = 200  # back-to-back launches per device-time reading
+#: the earlier design's numbers that this run's are printed beside (PERF.md,
+#: NVIDIA H100 80GB HBM3, 700.00 W): one CG matvec of the pose graph as a
+#: double vjp (kernels, ms), the per-scan run's two full solves (s, two
+#: calls), K3-T's device ms per launch at 16 x (1024, 8192), which computed
+#: every slot and pair whatever the data
+EARLIER_MATVEC = (1206, 17.719)
+EARLIER_FULL_SOLVES_S = (16.3, 23.2)
+EARLIER_K3T_MS = 0.07130
+#: the most device launches (kernels and other nodes) one CG matvec may take
+MATVEC_MAX_LAUNCHES = 100
 # NVIDIA H100 SXM data-sheet peaks (at 700 W): HBM3 bytes/s, fp32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -350,10 +389,12 @@ def ringkey_banks(queries: torch.Tensor, bank: torch.Tensor, k: int) -> torch.Te
     return bank[cand].contiguous()
 
 
-def check_k3t(label: str, src: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor) -> float:
-    """K3-T against its plain version: the same indices and d2, exactly."""
-    gd, gi = nn_dist.nearest_neighbors_multi_cuda(src, tgt, valid)
-    wd, wi = icp.nearest_neighbors_plain(src, tgt, valid)
+def check_k3t(label: str, src: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor,
+              mask: torch.Tensor = None) -> float:
+    """K3-T (with its slot mask, if given) against its plain version: the
+    same indices and d2, exactly."""
+    gd, gi = nn_dist.nearest_neighbors_multi_cuda(src, tgt, valid, mask)
+    wd, wi = icp.nearest_neighbors_plain(src, tgt, valid, mask)
     torch.cuda.synchronize()
     both = torch.isfinite(wd)
     err = float((gd[both] - wd[both]).abs().max()) if bool(both.any()) else 0.0
@@ -495,6 +536,108 @@ def timed(bucket: dict, name: str, fn):
     return wrapper
 
 
+class FullSolves:
+    """While entered, times every full pose-graph solve of every engine
+    (``SlamEngine._refine_graph(full=True)`` with a loop factor): ms on the
+    host clock, fenced by synchronize, in ``ms``."""
+
+    def __init__(self):
+        self.ms = []
+
+    def __enter__(self):
+        self._refine = refine = slam_mod.SlamEngine._refine_graph
+        ms = self.ms
+
+        def timed_refine(eng, full: bool):
+            if not full or eng.graph.num_loops == 0:
+                return refine(eng, full)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = refine(eng, full)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        slam_mod.SlamEngine._refine_graph = timed_refine
+        return self
+
+    def __exit__(self, *exc):
+        slam_mod.SlamEngine._refine_graph = self._refine
+
+    def line(self, label: str, name_power: str) -> str:
+        return (f"  {label}: full pose-graph solves {len(self.ms)}, ms each "
+                f"{', '.join('%.1f' % x for x in self.ms)}, {sum(self.ms) / 1e3:.3f} s in all "
+                f"(the earlier design's per-scan run: {EARLIER_FULL_SOLVES_S[0]} / "
+                f"{EARLIER_FULL_SOLVES_S[1]} s for its two); host clock after synchronize "
+                f"[{name_power}]")
+
+
+def matvec_probe(label: str, g, cfg: SlamConfig, name_power: str) -> None:
+    """One CG matvec of the pose graph's normal equations at the bucket the
+    solver takes for ``g``'s active nodes: its device work (kernels and other
+    nodes of a CUDA graph capture of the call), its device ms (CUDA events
+    over replays of that capture), its ms as an eager call (median of
+    TIMED_RUNS calls fenced by CUDA events), and the linearization's once
+    per GN step; beside the earlier double-vjp matvec.  Fails at
+    MATVEC_MAX_LAUNCHES launches or more."""
+    nb = pg_mod.bucket_size(g.poses.shape[0], int(g.num_nodes))
+    gs = g._replace(poses=g.poses[:nb], odom_meas=g.odom_meas[:nb], odom_valid=g.odom_valid[:nb],
+                    gps_meas=g.gps_meas[:nb], gps_valid=g.gps_valid[:nb])
+    lin = pg_mod.linearize(gs, cfg.pgo)
+    matvec, b = pg_mod.normal_equations(lin, nb, cfg.pgo.lm_lambda0)
+    kernels, other = kernels_per_call("matvec", lambda: matvec(b))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        matvec(b)
+    replay_ms = device_ms(graph.replay)
+    eager_ms = median_ms(lambda: matvec(b), TIMED_RUNS)
+    # the linearization builds small tensors on the host, which a graph
+    # capture refuses: its kernels are the profiler's count
+    lin_wall, lin_busy, lin_kernels = device_busy(lambda: pg_mod.linearize(gs, cfg.pgo))
+    print(f"  {label}: one CG matvec at the {nb}-node bucket ({int(g.num_nodes)} nodes, "
+          f"{int(g.loop_valid.sum())} loops): {kernels} kernels + {other} other nodes (CUDA graph "
+          f"capture), device {replay_ms:.5f} ms (events over {DEVICE_LAUNCHES} replays of the "
+          f"capture), {eager_ms:.4f} ms a call eager (median of {TIMED_RUNS}); the earlier "
+          f"double-vjp matvec {EARLIER_MATVEC[0]} kernels, {EARLIER_MATVEC[1]} ms; the "
+          f"linearization once per GN step: {lin_kernels} kernels (profiler), {lin_wall:.3f} "
+          f"ms wall, device busy " + ("not measured" if lin_busy is None else
+                                     f"{lin_busy:.3f} ms") + f" [{name_power}]")
+    if kernels + other >= MATVEC_MAX_LAUNCHES:
+        raise AssertionError(f"one CG matvec took {kernels + other} launches (limit "
+                             f"{MATVEC_MAX_LAUNCHES})")
+
+
+def k3t_workload(label: str, calls: list, name_power: str) -> None:
+    """A run's K3-T launches, replayed from their recorded inputs: the slots
+    each computed (its mask) and the valid targets of those (how many of
+    them fewer than all), and
+    the device ms summed over the launches, as the run made them and with
+    every slot computed (the mask dropped), beside the earlier design (every
+    slot and pair, EARLIER_K3T_MS a launch); with the operations bound and
+    the instruction floor of the valid pairs (5 fp32 instructions a pair,
+    issued at half the 67 TFLOP/s, which counts an FMA as two)."""
+    active = [int(m.sum()) for _, _, _, m in calls]
+    valid = torch.cat([v[m].sum(-1) for _, _, v, m in calls]).cpu().numpy()
+    pairs = sum(int(v[m].sum()) * s.shape[1] for s, _, v, m in calls)
+    masked = sum(device_ms(lambda: nn_dist.nearest_neighbors_multi_cuda(s, t, v, m), 50)
+                 for s, t, v, m in calls)
+    every = sum(device_ms(lambda: nn_dist.nearest_neighbors_multi_cuda(s, t, v), 50)
+                for s, t, v, _ in calls)
+    bound_ms = 1e3 * 5 * pairs / PEAK_FP32_PER_S
+    nt = calls[0][1].shape[1]
+    slots = sorted({s.shape[0] for s, _, _, _ in calls})
+    print(f"  K3-T on the {label}, {len(calls)} launches of {'-'.join(map(str, slots))} "
+          f"slots x ({calls[0][0].shape[1]}, {nt}): slots computed per launch "
+          f"{dict(sorted(collections.Counter(active).items()))} (launch: count), valid "
+          f"targets per computed slot {int(valid.min())} to {int(valid.max())} (median "
+          f"{int(np.median(valid))}), fewer than {nt} in {int((valid < nt).sum())} of "
+          f"{len(valid)} computed slots; device ms summed over the launches {masked:.4f} as run, "
+          f"{every:.4f} with every slot computed, the earlier design "
+          f"{len(calls) * EARLIER_K3T_MS:.4f} ({len(calls)} x {EARLIER_K3T_MS}); bound "
+          f"{bound_ms:.4f} ms ({pairs / 1e6:.1f} M valid pairs, operations), instruction floor "
+          f"{2 * bound_ms:.4f} ms (CUDA events over 50 launches of each) [{name_power}]")
+
+
 def slam_scans(sim: RadarSimulator) -> tuple:
     """The full-SLAM paths' 60 motion-distorted scans and ground truth."""
     gt = sim.circuit_trajectory(N_SLAM_SCANS + 1, radius=10.0, speed=6.0)
@@ -528,46 +671,48 @@ def check_slam_result(label: str, eng, gt: np.ndarray) -> tuple:
 
 def slam_path(cfg: SlamConfig, gt: np.ndarray, scans: list, dev, name_power: str) -> tuple:
     """Phase 10: the full-SLAM path per scan, checked; returns its launches,
-    loops and per-scan times (ms)."""
-    eng = slam_mod.SlamEngine(cfg, device=dev)
-    # stage split: odometry, refine (inside the keyframe step), keyframe step
-    stage = defaultdict(float)
-    eng.odometry.process = timed(stage, "odometry", eng.odometry.process)
-    eng._refine_graph = timed(stage, "refine", eng._refine_graph)
-    eng._add_keyframe = timed(stage, "keyframe", eng._add_keyframe)
-    n_icp = [0]
-    icp_se2 = slam_mod.icp_ops.icp_se2
+    loops and per-scan times (ms).  Prints each full pose-graph solve's ms
+    and, on the final graph, one CG matvec's device work and ms."""
+    with FullSolves() as solves:
+        eng = slam_mod.SlamEngine(cfg, device=dev)
+        # stage split: odometry, refine (inside the keyframe step), keyframe step
+        stage = defaultdict(float)
+        eng.odometry.process = timed(stage, "odometry", eng.odometry.process)
+        eng._refine_graph = timed(stage, "refine", eng._refine_graph)
+        eng._add_keyframe = timed(stage, "keyframe", eng._add_keyframe)
+        n_icp = [0]
+        icp_se2 = slam_mod.icp_ops.icp_se2
 
-    def counted_icp(*args, **kwargs):
-        n_icp[0] += 1
-        return icp_se2(*args, **kwargs)
+        def counted_icp(*args, **kwargs):
+            n_icp[0] += 1
+            return icp_se2(*args, **kwargs)
 
-    k2_rows = []   # bank rows of each K2 launch
-    k2 = sc_corr.sc_shift_distances_cuda
+        k2_rows = []   # bank rows of each K2 launch
+        k2 = sc_corr.sc_shift_distances_cuda
 
-    def recorded_k2(query, bank):
-        k2_rows.append(bank.shape[0])
-        return k2(query, bank)
+        def recorded_k2(query, bank):
+            k2_rows.append(bank.shape[0])
+            return k2(query, bank)
 
-    slam_mod.icp_ops.icp_se2 = counted_icp
-    sc_corr.sc_shift_distances_cuda = recorded_k2
-    per_scan = []
-    try:
-        reset_counts()
-        for i, s in enumerate(scans):
-            stage.clear()
+        slam_mod.icp_ops.icp_se2 = counted_icp
+        sc_corr.sc_shift_distances_cuda = recorded_k2
+        per_scan = []
+        try:
+            reset_counts()
+            for i, s in enumerate(scans):
+                stage.clear()
+                t0 = time.perf_counter()
+                eng.process(s, timestamp=i * 0.25)
+                torch.cuda.synchronize()
+                per_scan.append((time.perf_counter() - t0, stage["odometry"],
+                                 stage["keyframe"] - stage["refine"], stage["refine"]))
             t0 = time.perf_counter()
-            eng.process(s, timestamp=i * 0.25)
-            torch.cuda.synchronize()
-            per_scan.append((time.perf_counter() - t0, stage["odometry"],
-                             stage["keyframe"] - stage["refine"], stage["refine"]))
-        t0 = time.perf_counter()
-        eng.trajectory()
-        final_flush = time.perf_counter() - t0
-        launches = read_counts()
-    finally:
-        slam_mod.icp_ops.icp_se2 = icp_se2
-        sc_corr.sc_shift_distances_cuda = k2
+            eng.trajectory()
+            final_flush = time.perf_counter() - t0
+            launches = read_counts()
+        finally:
+            slam_mod.icp_ops.icp_se2 = icp_se2
+            sc_corr.sc_shift_distances_cuda = k2
 
     c = cfg.scancontext
     detecting = [k + 1 for k in range(eng.num_keyframes)
@@ -611,7 +756,12 @@ def slam_path(cfg: SlamConfig, gt: np.ndarray, scans: list, dev, name_power: str
           f"synchronize [{name_power}]")
     whole = 1e3 * (sum(x[0] for x in per_scan) + final_flush) / N_SLAM_SCANS
     print(f"  per-scan run: {whole:.3f} ms per scan over the whole run (the "
-          f"{N_SLAM_SCANS} process calls and the final drain) [{name_power}]")
+          f"{N_SLAM_SCANS} process calls and the final drain), {whole * N_SLAM_SCANS / 1e3:.3f} "
+          f"s [{name_power}]")
+    print(solves.line("per-scan run", name_power))
+    if not solves.ms:
+        raise AssertionError("the per-scan run timed no full solve")
+    matvec_probe("per-scan run's final graph", eng.graph.g, cfg, name_power)
     return launches, loops, traj, med[0], whole
 
 
@@ -619,74 +769,80 @@ def streaming_path(cfg: SlamConfig, gt: np.ndarray, scans: list, dev, name_power
                    per_scan_loops: list, per_scan_traj: np.ndarray) -> tuple:
     """Phase 11: the same scans through begin_chunk / finish_chunk, chunks of
     CHUNK scans, two in flight; returns its launches, loops, the median ms
-    per scan of its chunk steps and its whole-run ms per scan."""
-    eng = slam_mod.SlamEngine(cfg, device=dev)
-    c = cfg.scancontext
-    per_kf = [0, 0]      # keyframes sent down the per-keyframe path, detecting ones
-    add_keyframe = eng._add_keyframe
+    per scan of its chunk steps, its whole-run ms per scan and its
+    trajectory.  Prints each full solve's ms and its K3-T work
+    (``k3t_workload``)."""
+    with FullSolves() as solves:
+        eng = slam_mod.SlamEngine(cfg, device=dev)
+        c = cfg.scancontext
+        per_kf = [0, 0]      # keyframes sent down the per-keyframe path, detecting ones
+        add_keyframe = eng._add_keyframe
 
-    def counted_add(*args, **kwargs):
-        k = eng.num_keyframes
-        per_kf[0] += 1
-        per_kf[1] += bool(eng.cfg.do_slam and (k + 1) % c.detect_every_n_keyframes == 0
-                          and (k + 1) > c.num_exclude_recent)
-        return add_keyframe(*args, **kwargs)
+        def counted_add(*args, **kwargs):
+            k = eng.num_keyframes
+            per_kf[0] += 1
+            per_kf[1] += bool(eng.cfg.do_slam and (k + 1) % c.detect_every_n_keyframes == 0
+                              and (k + 1) > c.num_exclude_recent)
+            return add_keyframe(*args, **kwargs)
 
-    segments = [0, 0]    # segments, segments that detect
-    get_segment = eng._get_segment
+        segments = [0, 0]    # segments, segments that detect
+        get_segment = eng._get_segment
 
-    def counted_segment(tp, with_detect):
-        segments[0] += 1
-        segments[1] += bool(with_detect)
-        return get_segment(tp, with_detect)
+        def counted_segment(tp, with_detect):
+            segments[0] += 1
+            segments[1] += bool(with_detect)
+            return get_segment(tp, with_detect)
 
-    icp_calls = []       # K3-T calls of each T-slot ICP
-    icp_multi, nn_multi = slam_mod.icp_ops.icp_se2_multi, icp.nearest_neighbors_multi
+        icp_calls = []       # K3-T calls of each T-slot ICP
+        icp_multi, nn_multi = slam_mod.icp_ops.icp_se2_multi, icp.nearest_neighbors_multi
 
-    def counted_icp_multi(*args, **kwargs):
-        icp_calls.append(0)
-        return icp_multi(*args, **kwargs)
+        def counted_icp_multi(*args, **kwargs):
+            icp_calls.append(0)
+            return icp_multi(*args, **kwargs)
 
-    def counted_nn_multi(*args, **kwargs):
-        icp_calls[-1] += 1
-        return nn_multi(*args, **kwargs)
+        k3t_calls = []       # each K3-T call's inputs, for the replay
 
-    n_icp = [0]
-    icp_se2 = slam_mod.icp_ops.icp_se2
+        def counted_nn_multi(*args):
+            icp_calls[-1] += 1
+            k3t_calls.append(args)
+            return nn_multi(*args)
 
-    def counted_icp(*args, **kwargs):
-        n_icp[0] += 1
-        return icp_se2(*args, **kwargs)
+        n_icp = [0]
+        icp_se2 = slam_mod.icp_ops.icp_se2
 
-    # the keyframe work: segments, per-keyframe steps, refines (each call
-    # fenced by synchronize, as in the per-scan path's split)
-    stage = defaultdict(float)
-    eng._add_keyframe = timed(stage, "keyframe", counted_add)
-    eng._get_segment = counted_segment
-    eng._dispatch_segment = timed(stage, "segment", eng._dispatch_segment)
-    eng._refine_graph = timed(stage, "refine", eng._refine_graph)
-    slam_mod.icp_ops.icp_se2_multi, icp.nearest_neighbors_multi = counted_icp_multi, counted_nn_multi
-    slam_mod.icp_ops.icp_se2 = counted_icp
-    steps = []
-    try:
-        torch.cuda.synchronize()
-        reset_counts()
-        t_run = time.perf_counter()
-        for c0 in range(0, N_SLAM_SCANS, CHUNK):
-            t0 = time.perf_counter()
-            chunk = np.stack(scans[c0:c0 + CHUNK])
-            eng.begin_chunk(chunk, timestamps=[i * 0.25 for i in range(c0, c0 + len(chunk))])
-            if eng.inflight_chunks >= 2:
-                eng.finish_chunk()
+        def counted_icp(*args, **kwargs):
+            n_icp[0] += 1
+            return icp_se2(*args, **kwargs)
+
+        # the keyframe work: segments, per-keyframe steps, refines (each call
+        # fenced by synchronize, as in the per-scan path's split)
+        stage = defaultdict(float)
+        eng._add_keyframe = timed(stage, "keyframe", counted_add)
+        eng._get_segment = counted_segment
+        eng._dispatch_segment = timed(stage, "segment", eng._dispatch_segment)
+        eng._refine_graph = timed(stage, "refine", eng._refine_graph)
+        slam_mod.icp_ops.icp_se2_multi, icp.nearest_neighbors_multi = counted_icp_multi, counted_nn_multi
+        slam_mod.icp_ops.icp_se2 = counted_icp
+        steps = []
+        try:
             torch.cuda.synchronize()
-            steps.append(1e3 * (time.perf_counter() - t0) / len(chunk))
-        eng.current_pose()
-        torch.cuda.synchronize()
-        whole = 1e3 * (time.perf_counter() - t_run) / N_SLAM_SCANS
-        launches = read_counts()
-    finally:
-        slam_mod.icp_ops.icp_se2_multi, icp.nearest_neighbors_multi = icp_multi, nn_multi
-        slam_mod.icp_ops.icp_se2 = icp_se2
+            reset_counts()
+            t_run = time.perf_counter()
+            for c0 in range(0, N_SLAM_SCANS, CHUNK):
+                t0 = time.perf_counter()
+                chunk = np.stack(scans[c0:c0 + CHUNK])
+                eng.begin_chunk(chunk, timestamps=[i * 0.25 for i in range(c0, c0 + len(chunk))])
+                if eng.inflight_chunks >= 2:
+                    eng.finish_chunk()
+                torch.cuda.synchronize()
+                steps.append(1e3 * (time.perf_counter() - t0) / len(chunk))
+            eng.current_pose()
+            torch.cuda.synchronize()
+            whole = 1e3 * (time.perf_counter() - t_run) / N_SLAM_SCANS
+            launches = read_counts()
+        finally:
+            slam_mod.icp_ops.icp_se2_multi, icp.nearest_neighbors_multi = icp_multi, nn_multi
+            slam_mod.icp_ops.icp_se2 = icp_se2
     loops, ate, path, n_map, traj = check_slam_result("streamed path", eng, gt)
     print(f"full-SLAM path, streamed in chunks of {CHUNK}, two in flight: {eng.num_keyframes} "
           f"keyframes, {segments[0]} segments ({segments[1]} detecting), {per_kf[0]} "
@@ -728,6 +884,8 @@ def streaming_path(cfg: SlamConfig, gt: np.ndarray, scans: list, dev, name_power
           f"segments {1e3 * stage['segment']:.1f}, per-keyframe steps "
           f"{1e3 * stage['keyframe']:.1f}, refine (all) {1e3 * stage['refine']:.1f} ms; host "
           f"clock after synchronize [{name_power}]")
+    print(solves.line("streamed run", name_power))
+    k3t_workload("streamed run", k3t_calls, name_power)
     return launches, loops, med, whole, traj
 
 
@@ -772,6 +930,162 @@ def check_spectral_invariance(prev, curr, cfg: SlamConfig) -> None:
     if differ or int(n_valid.min()) == 0:
         raise AssertionError(f"vmapped spectral scores differ from one stream's in streams "
                              f"{differ}")
+
+
+def _fingerprint(x: torch.Tensor) -> torch.Tensor:
+    """A position-weighted sum of the bit patterns of ``x`` (an int64 scalar
+    on its device): equal tensors give equal sums, and a tensor with any
+    element's bits changed gives another sum but by a collision."""
+    if x.is_floating_point():
+        x = x.contiguous().view({8: torch.int64, 4: torch.int32, 2: torch.int16}[
+            x.element_size()])
+    flat = x.reshape(-1).to(torch.int32 if x.element_size() <= 4 else torch.int64)
+    w = torch.arange(flat.numel(), device=x.device, dtype=flat.dtype) % 65521 + 1
+    return (flat * w).sum(dtype=torch.int64)
+
+
+class OpRecord(torch.utils._python_dispatch.TorchDispatchMode):
+    """Every aten op the recorded code dispatches (under torch.func.vmap:
+    the batched ops), with where in the port it was called and a
+    fingerprint of each tensor it reads and writes.  With ``like``, the
+    record of the same code on a batch of half the streams, each tensor is
+    fingerprinted on the half of its batch dimension (the dimension of
+    twice ``like``'s size, the streams of ``part``) that holds those
+    streams; a tensor without one is fingerprinted whole, or not at all
+    when its shape does not follow."""
+
+    def __init__(self, like: "OpRecord" = None, part: int = 0):
+        super().__init__()
+        self.like, self.part, self.ops = like, part, []
+
+    def _fp(self, x: torch.Tensor, half: tuple):
+        if half is not None and tuple(x.shape) != half:
+            dims = [d for d in range(x.dim()) if len(half) == x.dim() and x.shape[d] == 2 * half[d]
+                    and all(x.shape[e] == half[e] for e in range(x.dim()) if e != d)]
+            if len(dims) != 1:
+                return None
+            x = x.narrow(dims[0], self.part * half[dims[0]], half[dims[0]])
+        return _fingerprint(x)
+
+    @staticmethod
+    def _where() -> str:
+        frame = sys._getframe(2)
+        while frame is not None and "navtech_radar_slam_torch" not in frame.f_code.co_filename:
+            frame = frame.f_back
+        if frame is None:
+            return "?"
+        path = frame.f_code.co_filename.split("navtech_radar_slam_torch/")[-1]
+        return f"{path}:{frame.f_lineno} ({frame.f_code.co_name})"
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        ref = None
+        if self.like is not None and len(self.ops) < len(self.like.ops):
+            ref = self.like.ops[len(self.ops)]
+        leaves = lambda tree: [a for a in torch.utils._pytree.tree_leaves(tree)  # noqa: E731
+                               if isinstance(a, torch.Tensor)]
+        rec = []
+        for k, tensors in ((2, leaves((args, kwargs))), (3, leaves(out))):
+            # an empty* op's output is uninitialised memory: not compared
+            skip = k == 3 and func.__name__.startswith("empty")
+            rec.append([(tuple(a.shape), None if skip else self._fp(
+                a, None if ref is None or j >= len(ref[k]) else ref[k][j][0]))
+                for j, a in enumerate(tensors)])
+        self.ops.append((str(func), self._where(), *rec))
+        return out
+
+
+def first_differing_op(step, cfg: SlamConfig, prev: torch.Tensor, curr: torch.Tensor,
+                       az: torch.Tensor, part: int) -> str:
+    """The constellation descriptors of B streams' features as one vmapped
+    call, and their batched registration (``register_step`` under
+    torch.func.vmap), each recorded op by op against the same on half of the
+    streams (``part`` 0: the first half, 1: the second; the half reads the
+    B-stream extraction's rows, so both read the same inputs), compared on
+    those streams: for each, the first op whose inputs agree and whose
+    outputs differ, and how many ops' outputs differ.  (The batched top-k
+    sorts every stream's scores together, so the extraction as a whole does
+    not compare op by op; its leaves are compared in
+    ``check_batch_size_invariance``.)"""
+    b = prev.shape[0]
+    sl = slice(part * b // 2, (part + 1) * b // 2)
+    zero = torch.zeros(b, 3, device=prev.device)
+    feats = [extract_scan_features_batched(x, az, cfg) for x in (prev, curr)]
+    # the halves sliced here, so that both records hold the same ops
+    halves = [type(f)(*(x[sl] for x in f)) for f in feats] + [zero[sl]]
+    desc_in = [(f.xy, f.power, f.valid) for f in (feats[1], halves[1])]
+    pair = torch.func.vmap(functools.partial(register_step, cfg=cfg))
+    desc = torch.func.vmap(functools.partial(constellation_descriptors, fcfg=cfg.features))
+    stages = (("descriptors as one torch.func.vmap over the streams (the extraction runs "
+               "it in calls of a fixed number of streams)",
+               lambda: desc(*desc_in[1]), lambda: desc(*desc_in[0])),
+              ("registration (register_step under vmap)",
+               lambda: pair(*halves), lambda: pair(*feats, zero)))
+    report = []
+    for stage, run_half, run_whole in stages:
+        with OpRecord() as half:
+            run_half()
+        with OpRecord(like=half, part=part) as whole:
+            run_whole()
+        torch.cuda.synchronize()
+        if len(half.ops) != len(whole.ops):
+            report.append(f"{stage}: {len(half.ops)} and {len(whole.ops)} ops dispatched "
+                          "(a loop over the streams), not compared op by op")
+            continue
+
+        def same(x, y):
+            return [None if u[1] is None or v[1] is None else bool(u[1] == v[1])
+                    for u, v in zip(x, y)]
+
+        # a candidate reads tensors and writes only tensors with a batch
+        # dimension: vmap's own batch indices (an arange of B, a select of
+        # one stream) differ by position in the second half, not by rounding
+        first, n_out = None, 0
+        for (name, where, ins, outs), (_, _, hin, hout) in zip(whole.ops, half.ops):
+            if False in same(outs, hout):
+                n_out += 1
+                batched = all(u[0] != v[0] for u, v in zip(outs, hout))
+                if first is None and ins and batched and False not in same(ins, hin):
+                    first = f"{name} at {where}"
+        report.append(f"{stage}: first op whose inputs agree and outputs differ "
+                      f"{first or 'none'}, ops whose outputs differ {n_out} of {len(whole.ops)}")
+    return "; ".join(report)
+
+
+def check_batch_size_invariance(step, prev: torch.Tensor, curr: torch.Tensor,
+                                az: torch.Tensor, cfg: SlamConfig, name_power: str) -> None:
+    """The batched step at B streams against the same streams in two steps
+    of B / 2 (as two mesh ranks run them): the seed's and the step's leaves,
+    rel_pose, ok and the de-skewed xy among them, bit for bit; on a
+    difference, the first op that differs (``first_differing_op``)."""
+    b = prev.shape[0]
+
+    def run(sl):
+        carry = extract_scan_features_batched(prev[sl], az, cfg)
+        out = step(curr[sl], az, carry, torch.zeros(prev[sl].shape[0], 3, device=prev.device))
+        leaves = {f"seed.{k}": v for k, v in carry._asdict().items()}
+        for part, tup in zip(("carry", "res", "feats"), out):
+            leaves.update({f"{part}.{k}": v for k, v in tup._asdict().items()})
+        return leaves
+
+    whole = run(slice(None))
+    halves = [run(slice(0, b // 2)), run(slice(b // 2, b))]
+    torch.cuda.synchronize()
+    differ = {}
+    for key, x in whole.items():
+        y = torch.cat([h[key] for h in halves])
+        if not torch.equal(x, y):
+            differ[key] = (int((x != y).sum()), [int((x[sl] != y[sl]).sum()) for sl in (
+                slice(0, b // 2), slice(b // 2, b))])
+    print(f"  batch size: B = {b} against the same streams in two steps of B = {b // 2}, the "
+          f"seed and the step (rel_pose, ok, de-skewed xy among {len(whole)} leaves): not "
+          f"bit-equal {differ or 'none'} [{name_power}]")
+    if differ:
+        for part in (0, 1):
+            print(f"  batch size, streams of half {part}: "
+                  f"{first_differing_op(step, cfg, prev, curr, az, part)} [{name_power}]")
+    if differ:
+        raise AssertionError(f"batched odometry depends on the batch size: {differ}")
 
 
 def batched_path(cfg: SlamConfig, gt: np.ndarray, scans: list, dev, name_power: str) -> tuple:
@@ -873,6 +1187,7 @@ def batched_path(cfg: SlamConfig, gt: np.ndarray, scans: list, dev, name_power: 
 
     check_spectral_invariance(extract_scan_features_batched(batches[0], az, cfg),
                               extract_scan_features_batched(batches[1], az, cfg), cfg)
+    check_batch_size_invariance(step, batches[0], batches[1], az, cfg, name_power)
 
     # two more timed windows
     windows = [secs] + [window()[4] for _ in range(BATCH_WINDOWS - 1)]
@@ -908,6 +1223,11 @@ def cli_path(cfg: SlamConfig, name_power: str) -> dict:
     scan_stream, loader_next = cli.scan_stream, runtime.NativeRadarLoader.__next__
     kinds = []                     # the scan source of each CLI call
     waits = []                     # ms in NativeRadarLoader.__next__ per scan, per call
+    nn_multi, k3t_calls = icp.nearest_neighbors_multi, []   # K3-T inputs, for the replay
+
+    def recorded_nn_multi(*args):
+        k3t_calls.append(args)
+        return nn_multi(*args)
 
     def recorded_stream(args, cfg):
         stream, n, kind = scan_stream(args, cfg)
@@ -942,11 +1262,13 @@ def cli_path(cfg: SlamConfig, name_power: str) -> dict:
         waits.append([])
         reset_counts()
         t0 = time.perf_counter()
-        if cli.main(argv + ["--device", "cuda", "--save_plot", "false"]) != 0:
-            raise AssertionError(f"cli.main returned non-zero for {argv}")
+        with FullSolves() as solves:
+            if cli.main(argv + ["--device", "cuda", "--save_plot", "false"]) != 0:
+                raise AssertionError(f"cli.main returned non-zero for {argv}")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_counts()
+        print(solves.line("this CLI call", name_power))
         if kinds[-1] != "native":
             raise AssertionError(f"the CLI read with the {kinds[-1]} loader, not the native one")
         w = waits[-1]
@@ -962,6 +1284,7 @@ def cli_path(cfg: SlamConfig, name_power: str) -> dict:
     ckpt.save_engine = keep_checkpoints
     slam_mod.SlamEngine.prewarm = timed_prewarm
     cli.scan_stream = recorded_stream
+    icp.nearest_neighbors_multi = recorded_nn_multi
     try:
         with tempfile.TemporaryDirectory() as tmp:
             seq_a, seq_b = os.path.join(tmp, "seq_a"), os.path.join(tmp, "seq_b")
@@ -1057,6 +1380,11 @@ def cli_path(cfg: SlamConfig, name_power: str) -> dict:
     finally:
         ckpt.save_engine, slam_mod.SlamEngine.prewarm = save_engine, prewarm
         cli.scan_stream, runtime.NativeRadarLoader.__next__ = scan_stream, loader_next
+        icp.nearest_neighbors_multi = nn_multi
+    if len(k3t_calls) != total["nn_dist_multi"]:
+        raise AssertionError(f"{len(k3t_calls)} K3-T calls recorded, {total['nn_dist_multi']} "
+                             "launched")
+    k3t_workload("three CLI calls, prewarm included", k3t_calls, name_power)
     return dict(total)
 
 
@@ -1466,10 +1794,12 @@ def mesh_phase(cfg: SlamConfig, sim: RadarSimulator, live_bank: torch.Tensor,
               f"rel_pose max abs err {rel_err:.3g}; K1 x {MESH_STREAMS // d} launches {k1b} "
               f"(seed + step); step {', '.join('%.1f' % r['odo_ms'] for r in ranks)} ms on the "
               f"ranks [{name_power}]")
-        if n_own or k1b != [2] * d or not ok_same or rel_err > 1e-4:
+        # the batched step gives each stream the same bits at any batch size,
+        # so the split into ranks changes no leaf
+        if n_own or k1b != [2] * d or not ok_same or diffs:
             raise AssertionError(f"sharded odometry: {n_own} leaves differ from the rank's own "
-                                 f"step, ok equal {ok_same}, rel_pose off by {rel_err}, "
-                                 f"K1 x B {k1b}")
+                                 f"step, leaves {diffs} from the unsharded step, ok equal "
+                                 f"{ok_same}, rel_pose off by {rel_err}, K1 x B {k1b}")
 
         # 4. the mesh engine against the single-device streamed run
         trajs = [r["engine_traj"] for r in ranks]
@@ -1677,11 +2007,19 @@ def main() -> None:
     # masks that differ per slot: a slot's share of invalid targets from 0 to 0.9
     tv_t = torch.as_tensor(rng.random((SLOTS, 8192)) >= np.linspace(0, 0.9, SLOTS)[:, None],
                            device=dev)
+    half_slots = torch.arange(SLOTS, device=dev) % 2 == 0
+    # valid targets as a prefix of each slot's 8192, as submaps pack them
+    prefix_valid = torch.arange(8192, device=dev) < torch.as_tensor(
+        rng.integers(0, 8193, (SLOTS, 1)), device=dev)
     print("K3-T vs plain (one launch for all slots):")
     k3t_err = max(
         check_k3t("masks differing per slot", src_t, tgt_t, tv_t),
         check_k3t("every target tied across the chunks", src_t,
                   tgt_t[:, :1024].repeat(1, 8, 1), tv_t),
+        check_k3t("half the slots masked off", src_t, tgt_t, tv_t, half_slots),
+        check_k3t("every slot masked off", src_t, tgt_t, tv_t, torch.zeros_like(half_slots)),
+        check_k3t("valid targets a prefix, half the slots masked off", src_t, tgt_t,
+                  prefix_valid, half_slots),
     )
     od, oi = nn_dist.nearest_neighbors_multi_cuda(src[None], tgt[None], tv[None])
     sd, si = nn_dist.nearest_neighbors_cuda(src, tgt, tv)
@@ -1803,6 +2141,21 @@ def main() -> None:
               f"device {dev_ms:.5f} ms per launch, bound {1e3 * b_ms:.3f} us by {b_by}, "
               f"share {b_ms / dev_ms:.4f} [{name_power}]")
     n_valid_t = int(tv_t.sum())
+    k3t_half_ms = device_ms(lambda: nn_dist.nearest_neighbors_multi_cuda(src_t, tgt_t, tv_t,
+                                                                         half_slots))
+    half_ms, _ = bound(SLOTS // 2 * (8 * nq + 9 * nt + 12 * nq),
+                       5 * nq * int(tv_t[half_slots].sum()))
+    print(f"nearest_neighbors_multi {tuple(src_t.shape)} x {tuple(tgt_t.shape)} with half the "
+          f"slots masked off: device {k3t_half_ms:.5f} ms per launch, bound {1e3 * half_ms:.3f} "
+          f"us, instruction floor {2e3 * half_ms:.3f} us [{name_power}]")
+    # every target valid, as on the ICP path (phases 11 and 14 print the
+    # valid targets of their launches)
+    all_valid = torch.ones_like(tv_t)
+    k3t_full_ms = device_ms(lambda: nn_dist.nearest_neighbors_multi_cuda(src_t, tgt_t, all_valid))
+    full_ms, _ = bound(SLOTS * (8 * nq + 9 * nt + 12 * nq), 5 * nq * SLOTS * nt)
+    print(f"nearest_neighbors_multi {tuple(src_t.shape)} x {tuple(tgt_t.shape)} with every "
+          f"target valid: device {k3t_full_ms:.5f} ms per launch, bound {1e3 * full_ms:.3f} us, "
+          f"instruction floor {2e3 * full_ms:.3f} us [{name_power}]")
     specs = {
         # name: (launch, bytes moved, fp32 operations, ms, plain ms, max abs
         # err, counter, source, TPU kernel)
@@ -1852,9 +2205,15 @@ def main() -> None:
         b_ms, b_by = bound(n_bytes, n_ops)
         per_call = kernels_per_call(name, launch)
         main = main_path.get(counter, launches)
+        # K3's 5 operations a pair are separate FSUB / FMUL / FADD, which
+        # issue at half the FMA-counted peak: the floor beside the bound
+        floor = (f", instruction floor {2e3 * b_ms:.3f} us"
+                 if counter in ("nn_dist", "nn_dist_multi") else "")
+        if counter == "nn_dist_multi":
+            floor += f", the earlier design {EARLIER_K3T_MS} ms ({dev_ms / EARLIER_K3T_MS:.4f} of it)"
         print(f"{name}: device {dev_ms:.5f} ms per launch (CUDA events over "
               f"{DEVICE_LAUNCHES} back-to-back launches), bound {1e3 * b_ms:.3f} us by "
-              f"{b_by} ({n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.2f} Mop), share "
+              f"{b_by}{floor} ({n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.2f} Mop), share "
               f"{b_ms / dev_ms:.4f}; wrapper-inclusive {ms:.4f} ms; launches odometry "
               f"{odo_n}, SLAM per scan {launches[counter]}, streamed "
               f"{stream_launches[counter]}, batched {batched_launches[counter]}, CLI "

@@ -15,59 +15,76 @@
 // would need is off by ~1e-2 m^2 at 150 m and breaks the bit-equal d2 and
 // the index ties, so the pairs run on the fp32 units.
 //
-// What bounds it on the card: operations, ~5 per pair (8.4 M pairs: 0.63 us
-// at the fp32 peak), against ~0.1 MB moved.  One launch's fixed cost (a few
-// us) is far above that, so the design aims to fill every SM at once and
-// keep the inner loop issue-bound:
-//
-//   * the grid splits the targets as well as the queries: blockIdx.y is a
-//     tile of kTileQ = 16 queries, blockIdx.x one of up to kMaxChunks = 8
-//     contiguous target chunks (the host picks the chunk count, fewer when
-//     Nt is small).  At (1024, 8192): 64 x 8 = 512 blocks of 128 threads,
-//     about four on each of the 132 SMs;
-//   * each thread keeps kQpt = 4 queries in registers with independent
-//     running minima, so one target read from shared memory serves four
-//     pairs and the four compare chains overlap;
-//   * the block stages its chunk through shared memory in steps of kStage
-//     targets with plain coalesced loads: each target is read once per
-//     block, and an invalid target is stored as (+inf, +inf) on the way in,
-//     so its d2 is +inf and never wins a strict <, and the inner loop has no
-//     mask test.  TMA would copy the tile but not fold the mask, and for an
-//     8 KB tile read once its descriptor and barrier buy nothing;
-//   * the 32 target slices of a block are interleaved (slice s takes
-//     targets s, s + 32, ...), so a warp reads 8 consecutive targets per
-//     step, each a broadcast to 4 lanes, with no bank conflict.
-//
-// Merging, first index on ties: a thread scans its targets in ascending
-// order with a strict <, so it keeps its first minimum; every merge after
-// that takes the lexicographic minimum of (d2, index), which is the same in
-// any order.  Lanes merge by shuffles, warps through shared memory, and the
-// blocks of one query tile form a thread block cluster along the targets:
-// each writes its 16 (d2, index) pairs to its shared memory, and cluster
-// rank 0 reads the others through distributed shared memory in rank order
-// and writes the result.  Chosen over a 64-bit atomicMin on
-// (d2 bits << 32 | index): the cluster merge needs no initialised output,
-// no memset launch and no global atomics, and is deterministic.
-//
 // K3-T, T problems in one launch (nn_dist_multi_launch), replaces the
 // jax.vmap of the same TPU kernel through the streaming segment's T-slot
 // ICP (navtech_radar_slam_tpu/models/slam.py, _make_kf_segment: vmap of
 // detect_one -> _verify_candidate -> ops/icp.py::icp_se2): src (T, Nq, 2),
-// tgt (T, Nt, 2), valid (T, Nt) into (T, Nq) d2 and index.  At the main
-// path's shapes, T = 16 slots at (1024, 8192), it reads 1.4 MB and writes
-// 0.2 MB (0.45 us at 3.35 TB/s) and does up to 16 x 1024 x 8192 x 5 = 671
-// Mop of fp32 (10.0 us at 67 TFLOP/s with every target valid): operations
-// bound it.  What the design does: the slots are grid axis z, each block
-// offsetting its queries, targets, mask and outputs by its slot and then
-// running K3's block as it is (clusters stay along the target chunks, one
-// cluster per query tile of one slot), so slot t's result is K3's for
-// problem t bit for bit and T = 1 is K3.  At 16 slots the grid is 8 x 64 x
-// 16 = 8,192 blocks of 128 threads, several waves over the 132 SMs, so the
-// launch's fixed cost, which sets K3's time at one problem (~9.8 us against
-// a 0.5 us bound), is paid once for 16 problems.  ptxas (-Xptxas -v, which
-// chip_smoke.py prints): 40 registers, 8,832 bytes of shared memory, no
-// spills, no stack.  Measured (chip_smoke.py, PERF.md): about 71 us at 16
-// slots, 4.5 us a problem.
+// tgt (T, Nt, 2), valid (T, Nt) into (T, Nq) d2 and index, and an optional
+// slot mask (T,): a masked slot computes nothing and gets what a query with
+// no valid target gets (+inf, index 0).  The single-problem entry point
+// (K3, nn_dist_launch) is the T = 1 case without a mask, bit for bit.
+//
+// What bounds it on the card: operations.  Each valid pair costs 5 fp32
+// instructions by design (2 FSUB, 2 FMUL, 1 FADD: separate, never an FMA),
+// which the 67 TFLOP/s peak (an FMA counted as two) issues at half rate,
+// plus a compare and two selects for the running (d2, index) minimum; at
+// 16 slots of (1024, 8192) the bytes are ~1.6 MB (0.5 us at 3.35 TB/s).
+// The work is what this launch's data needs, and the design computes only
+// that:
+//
+//   * a slot the caller masks off (an ICP slot without a candidate, or one
+//     that converged; the mask stays on the device) returns at once: its
+//     blocks are whole clusters, since a cluster runs along one slot's
+//     targets;
+//   * only valid targets are paired.  Each block compacts its chunk of the
+//     targets while it stages it into shared memory, in steps of kStage:
+//     pass r of kRun reads targets r * kThreads + tid (coalesced), each
+//     warp's ballot of the valid ones gives their order within the warp,
+//     one warp scans the kRun x kWarps counts, and every valid target is
+//     stored with its original index at its place, so the compacted list
+//     keeps ascending target order.  A step with no invalid target skips
+//     the index list (its index is its position).  Compacted per launch and
+//     not once per ICP call in a kernel of its own: the targets and mask do
+//     not change across an ICP call's iterations, but staging reads them
+//     anyway, the compaction adds 8 ballots and a 32-count scan a block
+//     (small beside its 32 x ~1024 pairs), and no second launch, scratch
+//     buffer or host-side state per call is needed.  The ICP submaps of
+//     the streamed and CLI runs have every target valid in every computed
+//     slot, and a variant without the compaction (invalid targets staged
+//     as +inf, a step with no valid target skipped) measured slower there
+//     as well as on scattered invalid targets.  Submaps pack their
+//     valid targets first, so a chunk past them leaves at once and its
+//     cluster waits on the chunks that hold them; sharing a cluster's valid
+//     targets out evenly through distributed shared memory was tried on the
+//     card, and its copy and two more cluster barriers cost more than the
+//     wait saved on the streamed run's shapes, whose submaps are full;
+//   * the grid splits the targets as well as the queries: blockIdx.y is a
+//     tile of kTileQ = 32 queries, blockIdx.x one of up to kMaxChunks = 8
+//     contiguous target chunks (the host picks the chunk count, fewer when
+//     Nt is small), blockIdx.z the slot.  At 16 x (1024, 8192): 8 x 32 x 16
+//     = 4,096 blocks of 128 threads;
+//   * each thread keeps kQpt = 8 queries in registers with independent
+//     running minima (one staged target, read once from shared memory,
+//     serves eight pairs, and the eight compare chains overlap); the 32
+//     target slices of a block are interleaved (slice s takes compacted
+//     targets s, s + 32, ...), so a warp reads 8 consecutive targets per
+//     step, each a broadcast to 4 lanes, with no bank conflict.  Of the
+//     tiles tried on the card (16, 32 and 64 queries a block; 4, 8 and 16
+//     a thread), this one was the fastest where the streamed run's launches
+//     are: one to four slots computed, every target valid.
+//
+// Merging, first index on ties: a thread scans its compacted targets in
+// ascending original order with a strict <, so it keeps its first minimum;
+// every merge after that takes the lexicographic minimum of (d2, index),
+// which is the same in any order.  Lanes merge by shuffles, warps through
+// shared memory, and the blocks of one query tile form a thread block
+// cluster along the targets: each writes its 32 (d2, index) pairs to its
+// shared memory, and cluster rank 0 reads the others through distributed
+// shared memory in rank order and writes the result.  Chosen over a 64-bit
+// atomicMin on (d2 bits << 32 | index): the cluster merge needs no
+// initialised output, no memset launch and no global atomics, and is
+// deterministic.  ptxas (-Xptxas -v, which chip_smoke.py prints) gives the
+// registers, shared memory and spills.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -76,16 +93,20 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kQpt = 4;                        // queries per thread
+constexpr int kQpt = 8;                        // queries per thread
 constexpr int kQGroups = 4;                    // query groups per block
 constexpr int kTileQ = kQpt * kQGroups;        // queries per block
 constexpr int kSlices = 32;                    // target slices per block
 constexpr int kThreads = kQGroups * kSlices;   // 128
 constexpr int kWarps = kThreads / 32;
 constexpr int kStage = 1024;                   // targets per shared-memory step
+constexpr int kRun = kStage / kThreads;        // staging passes per step
 constexpr int kMaxChunks = 8;                  // portable cluster size limit
 constexpr int kMaxTiles = 65535;               // gridDim.y limit
 constexpr int kMaxSlots = 65535;               // gridDim.z limit
+
+static_assert(kRun * kWarps == 32, "one warp scans the staging passes' counts");
+static_assert(32 % kQGroups == 0, "the query groups tile a warp");
 
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 
@@ -94,11 +115,42 @@ __device__ __forceinline__ bool before(float d, int i, float bd, int bi) {
   return d < bd || (d == bd && i < bi);
 }
 
+// Pair this thread's slice of a step's compacted targets (j = slice, slice
+// + kSlices, ...) with its kQpt queries, keeping each query's first
+// minimum (strict <, ascending j).  kDense: the step had no invalid
+// target, so target j's index is base + j and the index list is not read.
+template <bool kDense>
+__device__ __forceinline__ void pair_step(const float2* own, const int* own_i, int count,
+                                          int slice, int base, const float (&sx)[kQpt],
+                                          const float (&sy)[kQpt], float (&best)[kQpt],
+                                          int (&bi)[kQpt]) {
+#pragma unroll 4
+  for (int j = slice; j < count; j += kSlices) {
+    const float2 t = own[j];
+    const int ti = kDense ? base + j : own_i[j];
+#pragma unroll
+    for (int k = 0; k < kQpt; ++k) {
+      const float dx = __fsub_rn(sx[k], t.x);
+      const float dy = __fsub_rn(sy[k], t.y);
+      const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+      if (d2 < best[k]) {
+        best[k] = d2;
+        bi[k] = ti;
+      }
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 nn_dist_kernel(const float2* __restrict__ src, const float2* __restrict__ tgt,
-               const unsigned char* __restrict__ valid, float* __restrict__ dmin,
+               const unsigned char* __restrict__ valid,
+               const unsigned char* __restrict__ slot_mask, float* __restrict__ dmin,
                long long* __restrict__ idx, int nq, int nt, int chunk_len) {
-  __shared__ float2 stage[kStage];
+  __shared__ float2 own[kStage];      // this step's valid targets, in order
+  __shared__ int own_i[kStage];       // and their indices
+  __shared__ int pass_count[kRun][kWarps];
+  __shared__ int pass_start[kRun][kWarps];
+  __shared__ int stage_count;
   __shared__ float part_d[kWarps][kTileQ];
   __shared__ int part_i[kWarps][kTileQ];
   __shared__ float blk_d[kTileQ];
@@ -117,10 +169,20 @@ nn_dist_kernel(const float2* __restrict__ src, const float2* __restrict__ tgt,
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const int qg = tid % kQGroups;
-  const int slice = tid / kQGroups;
   const int q0 = blockIdx.y * kTileQ;
 
+  if (slot_mask != nullptr && !slot_mask[slot]) {
+    // every block of this cluster sees the same slot and leaves here, so
+    // none waits at a cluster barrier; rank 0 writes the defined value
+    if (cluster.block_rank() == 0 && tid < kTileQ && q0 + tid < nq) {
+      dmin[q0 + tid] = pos_inf();
+      idx[q0 + tid] = 0;
+    }
+    return;
+  }
+
+  const int qg = tid % kQGroups;
+  const int slice = tid / kQGroups;
   float sx[kQpt], sy[kQpt], best[kQpt];
   int bi[kQpt];
 #pragma unroll
@@ -137,24 +199,47 @@ nn_dist_kernel(const float2* __restrict__ src, const float2* __restrict__ tgt,
   const int hi = min(lo + chunk_len, nt);
   for (int base = lo; base < hi; base += kStage) {
     const int len = min(kStage, hi - base);
-    __syncthreads();
-    for (int i = tid; i < len; i += kThreads)
-      stage[i] = valid[base + i] ? tgt[base + i] : make_float2(pos_inf(), pos_inf());
-    __syncthreads();
-#pragma unroll 4
-    for (int j = slice; j < len; j += kSlices) {
-      const float2 t = stage[j];
+    __syncthreads();   // the previous step's targets are consumed
+    // pass r reads targets r * kThreads + tid (coalesced); the valid ones
+    // go to the compacted list in ascending order: pass, then warp, then
+    // lane, placed by the warp's ballot
+    unsigned ballots[kRun];
 #pragma unroll
-      for (int k = 0; k < kQpt; ++k) {
-        const float dx = __fsub_rn(sx[k], t.x);
-        const float dy = __fsub_rn(sy[k], t.y);
-        const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-        if (d2 < best[k]) {
-          best[k] = d2;
-          bi[k] = base + j;
-        }
+    for (int r = 0; r < kRun; ++r) {
+      const int e = r * kThreads + tid;
+      ballots[r] = __ballot_sync(0xffffffffu, e < len && valid[base + e]);
+      if (lane == 0) pass_count[r][warp] = __popc(ballots[r]);
+    }
+    __syncthreads();
+    if (warp == 0) {
+      // exclusive scan of the kRun x kWarps counts (32 of them), r-major
+      const int c = pass_count[lane / kWarps][lane % kWarps];
+      int incl = c;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int o = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += o;
+      }
+      pass_start[lane / kWarps][lane % kWarps] = incl - c;
+      if (lane == 31) stage_count = incl;
+    }
+    __syncthreads();
+    const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+    for (int r = 0; r < kRun; ++r) {
+      if (ballots[r] & (1u << lane)) {
+        const int e = r * kThreads + tid;
+        const int at = pass_start[r][warp] + __popc(ballots[r] & below);
+        own[at] = tgt[base + e];
+        own_i[at] = base + e;
       }
     }
+    const int count = stage_count;
+    __syncthreads();
+    if (count == len)   // every target of the step valid: the list is the step
+      pair_step<true>(own, own_i, count, slice, base, sx, sy, best, bi);
+    else
+      pair_step<false>(own, own_i, count, slice, base, sx, sy, best, bi);
   }
 
   // the 8 slices of a warp that share a query group: lanes qg, qg + 4, ...
@@ -216,9 +301,9 @@ nn_dist_kernel(const float2* __restrict__ src, const float2* __restrict__ tgt,
   cluster.sync();
 }
 
-int launch(const float* src, const float* tgt, const unsigned char* valid, float* dmin,
-           long long* idx, int slots, int nq, int nt, int chunks, int chunk_len,
-           void* stream) {
+int launch(const float* src, const float* tgt, const unsigned char* valid,
+           const unsigned char* slot_mask, float* dmin, long long* idx, int slots, int nq,
+           int nt, int chunks, int chunk_len, void* stream) {
   if (nq <= 0 || slots <= 0) return 0;
   const int tiles = (nq + kTileQ - 1) / kTileQ;
   if (nt < 0 || chunks < 1 || chunks > kMaxChunks || chunk_len < 1 ||
@@ -240,7 +325,7 @@ int launch(const float* src, const float* tgt, const unsigned char* valid, float
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, nn_dist_kernel, reinterpret_cast<const float2*>(src),
-      reinterpret_cast<const float2*>(tgt), valid, dmin, idx, nq, nt, chunk_len);
+      reinterpret_cast<const float2*>(tgt), valid, slot_mask, dmin, idx, nq, nt, chunk_len);
   const cudaError_t last = cudaGetLastError();  // clears a refused launch
   return static_cast<int>(e != cudaSuccess ? e : last);
 }
@@ -255,22 +340,26 @@ extern "C" int nn_dist_max_slots() { return kMaxSlots; }
 // src (Nq, 2) and tgt (Nt, 2) contiguous float32, valid (Nt,) bool (one byte
 // each), outputs dmin (Nq,) float32 and idx (Nq,) int64, all on the device.
 // The targets are cut into `chunks` (1..8) contiguous chunks of `chunk_len`;
-// the grid is (chunks, ceil(Nq / 16)) with clusters of (chunks, 1, 1).
+// the grid is (chunks, ceil(Nq / 32)) with clusters of (chunks, 1, 1).
 // Returns the CUDA error (0 = cudaSuccess) and leaves no error pending.
 extern "C" int nn_dist_launch(const float* src, const float* tgt,
                               const unsigned char* valid, float* dmin,
                               long long* idx, int nq, int nt, int chunks,
                               int chunk_len, void* stream) {
-  return launch(src, tgt, valid, dmin, idx, 1, nq, nt, chunks, chunk_len, stream);
+  return launch(src, tgt, valid, nullptr, dmin, idx, 1, nq, nt, chunks, chunk_len, stream);
 }
 
 // The T-slot form: src (T, Nq, 2), tgt (T, Nt, 2), valid (T, Nt), dmin and
-// idx (T, Nq), slot t's problem at offset t of each.  One launch, the slots
-// on grid axis z (clusters stay along the target chunks); slot t's output is
-// what nn_dist_launch gives for problem t, bit for bit.
+// idx (T, Nq), slot t's problem at offset t of each; slot_mask (T,) bool,
+// or null for every slot.  One launch, the slots on grid axis z (clusters
+// stay along the target chunks); slot t's output is what nn_dist_launch
+// gives for problem t, bit for bit, where slot_mask[t] holds, and (+inf, 0)
+// for every query where it does not.
 extern "C" int nn_dist_multi_launch(const float* src, const float* tgt,
-                                    const unsigned char* valid, float* dmin,
+                                    const unsigned char* valid,
+                                    const unsigned char* slot_mask, float* dmin,
                                     long long* idx, int slots, int nq, int nt,
                                     int chunks, int chunk_len, void* stream) {
-  return launch(src, tgt, valid, dmin, idx, slots, nq, nt, chunks, chunk_len, stream);
+  return launch(src, tgt, valid, slot_mask, dmin, idx, slots, nq, nt, chunks, chunk_len,
+                stream);
 }

@@ -160,6 +160,34 @@ def extract_scan_features(power: torch.Tensor, azimuths: torch.Tensor,
     )
 
 
+#: most streams of one vmapped descriptor call
+DESC_STREAMS = 32
+#: most products of one batched matmul: past 65,535 (CUDA's grid limit)
+#: cuBLAS splits the batch, and a split-off product rounds otherwise
+MATMUL_BATCH = 65535
+
+
+def _descriptors_batched(xy: torch.Tensor, power: torch.Tensor, valid: torch.Tensor,
+                         cfg: SlamConfig) -> torch.Tensor:
+    """``constellation_descriptors`` of B streams ((B, K, 2), (B, K),
+    (B, K)) under ``torch.func.vmap``, in calls of a fixed number of streams
+    (DESC_STREAMS, fewer where their matmul would pass MATMUL_BATCH
+    products; the last call padded with streams of no valid feature), so
+    every call has one shape whatever B is: cuBLAS picks its kernel, and
+    with it the order of a product's sum, by the batch count, and a
+    stream's bits would otherwise depend on B.  A call holds two
+    (streams, K, K, P) float32 hat tensors, 2 GB each at 32 x (1024, 1024,
+    16)."""
+    b, k = xy.shape[:2]
+    per = min(DESC_STREAMS, 1 << (max(1, MATMUL_BATCH // k).bit_length() - 1))
+    pad = -b % per
+    args = [torch.cat([x, x.new_zeros((pad,) + x.shape[1:])]) for x in (xy, power, valid)]
+    fn = torch.func.vmap(functools.partial(features.constellation_descriptors,
+                                           fcfg=cfg.features))
+    return torch.cat([fn(*(x[i:i + per] for x in args))
+                      for i in range(0, b + pad, per)])[:b]
+
+
 def extract_scan_features_batched(powers: torch.Tensor, azimuths: torch.Tensor,
                                   cfg: SlamConfig, ray_valids: Optional[torch.Tensor] = None,
                                   packed: bool = False) -> ScanFeatures:
@@ -170,15 +198,13 @@ def extract_scan_features_batched(powers: torch.Tensor, azimuths: torch.Tensor,
     (B, NA, NBp // 2) 4-bit wire format; ``azimuths`` (NA,) shared by the
     streams; ``ray_valids`` ((B, NA) bool, optional) each stream's valid
     rays.  One K1 x B launch on a CUDA batch and one exact top-k for the
-    batch; the descriptors under ``torch.func.vmap`` (two (B, K, K, P)
-    float32 hat tensors at once, 4.3 GB each at B = 64, K = 1024, P = 16)."""
+    batch; the descriptors by ``_descriptors_batched``."""
     if ray_valids is not None:
         powers = powers * ray_valids.to(powers.dtype)[:, :, None]
     powers = decode_power(powers, packed)
     feats = cen2019.extract_features_batched(powers.contiguous(), cfg.features, cfg.radar)
     xy = cen2019.features_to_xy(feats, azimuths, cfg.radar)
-    desc = torch.func.vmap(functools.partial(features.constellation_descriptors,
-                                             fcfg=cfg.features))(xy, feats.power, feats.valid)
+    desc = _descriptors_batched(xy, feats.power, feats.valid, cfg)
     ray_frac = (feats.azimuth_idx.to(torch.float32) + 0.5) / cfg.radar.num_azimuths
     return ScanFeatures(
         xy=xy,

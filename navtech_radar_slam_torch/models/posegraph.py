@@ -3,14 +3,18 @@
 Counterpart of ``navtech_radar_slam_tpu.models.posegraph``: a pose graph
 with an exact gauge on node 0, odometry Between factors, Cauchy-robust loop
 Between factors and altitude-dominated GPS factors, solved by warm-started
-IRLS Gauss-Newton whose normal equations are solved matrix-free by
-preconditioned conjugate gradients.  H v = Jᵀ (J v) through the residual
-function, with no Jacobian ever built: Jᵀ u is the pullback of
-``torch.func.vjp`` (taken once per GN step, as JAX takes it), and J v is the
-vjp of that pullback (the pullback is linear in u, so its transpose is J),
-also taken once per step.  JAX's matvec calls ``jax.jvp`` instead; the
-values are the same, but ``torch.func.jvp`` through these ~1400 small ops
-costs 90-140 ms per call on the CPU against ~5 ms for the transpose.
+IRLS Gauss-Newton whose normal equations are solved by preconditioned
+conjugate gradients.  Each GN step linearizes once, at delta = 0: every
+factor's Jacobian block against its two endpoint tangents (9 x 12: the
+6-row Between residual of an odometry or loop factor, and the 3 GPS rows
+of the node's position; whitened, IRLS-weighted, zero for padding and in
+node 0's gauge columns) comes from reverse-mode autodiff of the factors'
+own residual function, batched over the factors (``_factor_jacobians``):
+the derivative the residual function defines, not hand-derived SE(3)
+Jacobians.  A CG matvec H v = Jᵀ (J v) + λ v is then a gather of v at each
+factor's endpoints, two batched block products, a shift by one node for
+the odometry chain and ``index_add`` for the loops: about two dozen ops,
+whatever the graph's size.
 
 The JAX ``lax.while_loop``s (CG, outer GN) become bounded loops whose carry
 freezes once done, which gives exactly the while-loop's result.  The host
@@ -25,7 +29,7 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.func import vjp
+import torch.nn.functional as F
 
 from navtech_radar_slam_torch.config import PgoConfig
 from navtech_radar_slam_torch.utils import geometry as geo
@@ -117,37 +121,64 @@ def _gps_whitening(cfg: PgoConfig, dtype, device) -> torch.Tensor:
                          1.0 / cfg.gps_sigma_alt], dtype=dtype, device=device)
 
 
+def _factor_residuals(Ti, Tj, meas, valid, gps_meas) -> torch.Tensor:
+    """Raw residuals (F, 9) of a batch of factors joining poses Ti and Tj:
+    the Between residual against ``meas`` (rows 0-5), then Tj's position
+    less ``gps_meas`` (rows 6-8)."""
+    return torch.cat([_between_residual_masked(Ti, Tj, meas, valid), Tj[:, :3, 3] - gps_meas],
+                     dim=1)
+
+
+class _Factors(NamedTuple):
+    """One shard's factors in ``_factor_residuals``' layout: first node k's
+    (its odometry factor against node k - 1, mod N, and its GPS factor),
+    then the loops (rows 6-8 unused)."""
+
+    pairs: torch.Tensor    # (F, 2) int64 endpoint nodes i, j
+    meas: torch.Tensor     # (F, 4, 4)
+    valid: torch.Tensor    # (F,) bool, of the Between rows
+    gps: torch.Tensor      # (F, 3)
+    scale: torch.Tensor    # (F, 9) row whitening and IRLS weights, 0 for padding
+    num_node: int
+
+
+def _factors(g: GraphArrays, loop_w, gps_w, cfg: PgoConfig, shard: FactorShard) -> _Factors:
+    n = g.poses.shape[0]
+    dev, dt = g.poses.device, g.poses.dtype
+    nodes, loops = shard.nodes, shard.loops
+    k = torch.arange(n, device=dev)[nodes]
+    m = k.shape[0]
+    ov, lv, gv = g.odom_valid[nodes], g.loop_valid[loops], g.gps_valid[nodes]
+    node_scale = torch.cat([_between_whitening(cfg, dt, dev) * ov[:, None],
+                            _gps_whitening(cfg, dt, dev) * (gv * torch.sqrt(gps_w))[:, None]],
+                           dim=1)
+    loop_scale = F.pad((lv * torch.sqrt(loop_w) / cfg.loop_sigma)[:, None].expand(-1, 6),
+                       (0, 3))
+    return _Factors(
+        pairs=torch.cat([torch.stack([torch.remainder(k - 1, n), k], dim=1),
+                         torch.stack([g.loop_i[loops], g.loop_j[loops]], dim=1)]),
+        meas=torch.cat([g.odom_meas[nodes], g.loop_meas[loops]]),
+        valid=torch.cat([ov, lv]),
+        gps=F.pad(g.gps_meas[nodes], (0, 0, 0, lv.shape[0])),
+        scale=torch.cat([node_scale, loop_scale]),
+        num_node=m)
+
+
 def residuals(delta: torch.Tensor, g: GraphArrays, loop_irls_w: torch.Tensor,
               gps_irls_w: torch.Tensor, cfg: PgoConfig,
               shard: FactorShard = _WHOLE) -> torch.Tensor:
     """The whitened residuals of ``shard``'s factors (default: all of them)
-    as one flat vector; delta (N, 6) is the tangent update being linearized
-    (0 at the linearization point), the IRLS weights those of the shard's
-    factors.  Node 0 is the gauge: its delta is zeroed (exact prior)."""
+    as one flat vector: odometry (6 a node), loops (6 a factor), GPS (3 a
+    node).  delta (N, 6) is the tangent update being linearized (0 at the
+    linearization point), the IRLS weights those of the shard's factors.
+    Node 0 is the gauge: its delta is zeroed (exact prior)."""
     n = g.poses.shape[0]
-    dev, dt = g.poses.device, g.poses.dtype
-    gauge = (torch.arange(n, device=dev) == 0)[:, None]
-    delta = torch.where(gauge, torch.zeros_like(delta), delta)
-    P = _apply_delta(g.poses, delta)
-    nodes, loops = shard.nodes, shard.loops
-
-    # odometry chain factors: node k vs k-1
-    ov = g.odom_valid[nodes]
-    r_odom = _between_residual_masked(torch.roll(P, 1, dims=0)[nodes], P[nodes],
-                                      g.odom_meas[nodes], ov)
-    r_odom = r_odom * _between_whitening(cfg, dt, dev)[None, :]
-    r_odom = r_odom * ov[:, None]
-
-    # loop factors (IRLS-weighted Cauchy)
-    lv = g.loop_valid[loops]
-    r_loop = _between_residual_masked(P[g.loop_i[loops]], P[g.loop_j[loops]],
-                                      g.loop_meas[loops], lv) / cfg.loop_sigma
-    r_loop = r_loop * (lv * torch.sqrt(loop_irls_w))[:, None]
-
-    # GPS position factors (altitude-dominated by the sigma pattern)
-    r_gps = (P[nodes, :3, 3] - g.gps_meas[nodes]) * _gps_whitening(cfg, dt, dev)
-    r_gps = r_gps * (g.gps_valid[nodes] * torch.sqrt(gps_irls_w))[:, None]
-    return torch.cat([r_odom.reshape(-1), r_loop.reshape(-1), r_gps.reshape(-1)])
+    gauge = (torch.arange(n, device=g.poses.device) == 0)[:, None]
+    P = _apply_delta(g.poses, torch.where(gauge, torch.zeros_like(delta), delta))
+    f = _factors(g, loop_irls_w, gps_irls_w, cfg, shard)
+    r = _factor_residuals(P[f.pairs[:, 0]], P[f.pairs[:, 1]], f.meas, f.valid, f.gps) * f.scale
+    m = f.num_node
+    return torch.cat([r[:m, :6].reshape(-1), r[m:, :6].reshape(-1), r[:m, 6:].reshape(-1)])
 
 
 # ---------------------------------------------------------------------------
@@ -226,46 +257,108 @@ def _chain_precond(g: GraphArrays, cfg: PgoConfig, lam: float):
     return apply
 
 
-def _gn_step(g: GraphArrays, cfg: PgoConfig, lam: float, shard: FactorShard = _WHOLE):
-    """One IRLS + damped GN step: recompute robust weights, solve the normal
-    equations by CG through jvp/vjp matvecs, apply the tangent update.
-    Returns (graph, max |delta|).
+class Linearization(NamedTuple):
+    """One shard's factors linearized at delta = 0 (``linearize``)."""
 
-    A rank of the distributed solver passes its ``shard``: it evaluates only
-    those factors, the partial matvec and b are summed over the ranks, and
-    CG's stop flag is agreed, so that the CG state is the same on every
-    rank."""
-    n = g.poses.shape[0]
-    zero = torch.zeros((n, 6), dtype=g.poses.dtype, device=g.poses.device)
+    pairs: torch.Tensor   # (F, 2) endpoint nodes, as ``_Factors``
+    blk: torch.Tensor     # (F, 9, 12) vs [delta_i, delta_j]: whitened, weighted, gauge-free
+    r0: torch.Tensor      # (F, 9) whitened, weighted residuals
+    num_node: int         # the first num_node factors are node k's, the rest loops
+    loop_w: torch.Tensor  # (l,) Cauchy IRLS weights of the shard's loop factors
+    gps_w: torch.Tensor   # (num_node,) of its GPS factors
 
-    # IRLS weights from the current (unweighted) robust-factor residuals
+
+def _factor_jacobians(Ti, Tj, meas, valid, gps) -> tuple:
+    """``_factor_residuals``' Jacobian blocks (F, 9, 12) against the
+    endpoint tangents [delta_i, delta_j] (Ti exp(delta_i), Tj exp(delta_j))
+    at zero, and its residuals (F, 9) there.  Factor f's rows depend on its
+    own tangents only, so one reverse-mode pass over 9 copies of the
+    factors, copy c seeded with unit row c, gives every block: plain
+    autograd of sum(r * seed), since ``torch.func``'s vmap imports
+    torch._dynamo and sympy on its first call in a process (seconds)."""
+    f = Ti.shape[0]
+    rep = lambda x: x.repeat((9,) + (1,) * (x.dim() - 1))   # noqa: E731
+    with torch.enable_grad():
+        d = torch.zeros((9 * f, 12), dtype=Ti.dtype, device=Ti.device, requires_grad=True)
+        r = _factor_residuals(_apply_delta(rep(Ti), d[:, :6]), _apply_delta(rep(Tj), d[:, 6:]),
+                              rep(meas), rep(valid), rep(gps))
+        seed = torch.eye(9, dtype=r.dtype, device=r.device).repeat_interleave(f, dim=0)
+        (jac,) = torch.autograd.grad(torch.sum(r * seed), d)
+    return jac.reshape(9, f, 12).transpose(0, 1), r[:f].detach()
+
+
+def linearize(g: GraphArrays, cfg: PgoConfig, shard: FactorShard = _WHOLE) -> Linearization:
+    """The IRLS weights from the current (unweighted) robust-factor
+    residuals, then the Jacobian blocks and residuals of ``shard``'s factors
+    at delta = 0: ``residuals``' Jacobian block by block, by autodiff of the
+    factors' own residual function, with node 0's columns zeroed."""
+    dev, dt = g.poses.device, g.poses.dtype
     loops, nodes = shard.loops, shard.nodes
     r_loop_raw = _between_residual_masked(
         g.poses[g.loop_i[loops]], g.poses[g.loop_j[loops]], g.loop_meas[loops],
         g.loop_valid[loops]) / cfg.loop_sigma
     loop_w = 1.0 / (1.0 + torch.sum(r_loop_raw * r_loop_raw, dim=-1) / cfg.loop_cauchy_k ** 2)
-    gps_r = (g.poses[nodes, :3, 3] - g.gps_meas[nodes]) * _gps_whitening(cfg, g.poses.dtype,
-                                                                          g.poses.device)
+    gps_r = (g.poses[nodes, :3, 3] - g.gps_meas[nodes]) * _gps_whitening(cfg, dt, dev)
     gps_w = 1.0 / (1.0 + torch.sum(gps_r ** 2, dim=-1) / cfg.gps_cauchy_k ** 2)
 
-    def rfun(d):
-        return residuals(d, g, loop_w, gps_w, cfg, shard)
+    f = _factors(g, loop_w, gps_w, cfg, shard)
+    blk, r = _factor_jacobians(g.poses[f.pairs[:, 0]], g.poses[f.pairs[:, 1]], f.meas,
+                               f.valid, f.gps)
+    gauge_free = (f.pairs != 0).repeat_interleave(6, dim=1)[:, None, :]
+    blk = torch.where(gauge_free, blk * f.scale[:, :, None], torch.zeros_like(blk))
+    return Linearization(f.pairs, blk, r * f.scale, f.num_node, loop_w, gps_w)
 
-    r0, pullback = vjp(rfun, zero)
-    # J v as the transpose of the pullback u -> Jᵀu (linear in u), taken once
-    # per step like the pullback: the same J v as torch.func.jvp, at a
-    # twentieth of its cost per call (see the module docstring)
-    _, transpose = vjp(lambda u: pullback(u)[0], torch.zeros_like(r0))
+
+def _bmv(blk: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Batched block-vector product: (F, a, b) x (F, b) -> (F, a)."""
+    return torch.bmm(blk, x[:, :, None])[:, :, 0]
+
+
+def _jt(lin: Linearization, u: torch.Tensor, n: int, nodes: slice) -> torch.Tensor:
+    """Jᵀ u of one shard's factors, u (F, 9), as (N, 6): a node factor's
+    halves added at node k and, shifted by one, at node k - 1; the loops'
+    by ``index_add`` (whose float order differs on CUDA)."""
+    y = _bmv(lin.blk.transpose(1, 2), u)
+    node, loop = y[:lin.num_node], y[lin.num_node:]
+    lo, hi, _ = nodes.indices(n)
+    if (lo, hi) != (0, n):
+        node = F.pad(node, (0, 0, lo, n - hi))
+    out = node[:, 6:] + torch.roll(node[:, :6], -1, dims=0)
+    return out.index_add(0, lin.pairs[lin.num_node:].reshape(-1), loop.reshape(-1, 6))
+
+
+def _jtj(lin: Linearization, v: torch.Tensor, nodes: slice) -> torch.Tensor:
+    """Jᵀ (J v) of one shard's factors; v and the result (N, 6)."""
+    return _jt(lin, _bmv(lin.blk, v[lin.pairs].reshape(-1, 12)), v.shape[0], nodes)
+
+
+def normal_equations(lin: Linearization, n: int, lam: float,
+                     shard: FactorShard = _WHOLE) -> tuple:
+    """(matvec, b) over flat (6 N,) vectors: H v = Jᵀ (J v) + λ v and
+    b = -Jᵀ r0, each rank's partial sums merged by ``shard.reduce``."""
 
     def matvec(v):
-        Jv = transpose(v.reshape(n, 6))[0]
-        return shard.reduce(pullback(Jv)[0].reshape(-1)) + lam * v
+        return shard.reduce(_jtj(lin, v.reshape(n, 6), shard.nodes).reshape(-1)) + lam * v
 
-    b = -shard.reduce(pullback(r0)[0].reshape(-1))
+    return matvec, -shard.reduce(_jt(lin, lin.r0, n, shard.nodes).reshape(-1))
+
+
+def _gn_step(g: GraphArrays, cfg: PgoConfig, lam: float, shard: FactorShard = _WHOLE):
+    """One IRLS + damped GN step: recompute robust weights, linearize once,
+    solve the normal equations by CG, apply the tangent update.  Returns
+    (graph, max |delta|).
+
+    A rank of the distributed solver passes its ``shard``: it linearizes
+    only those factors, the partial matvec and b are summed over the ranks,
+    and CG's stop flag is agreed, so that the CG state is the same on every
+    rank."""
+    n = g.poses.shape[0]
+    lin = linearize(g, cfg, shard)
+    matvec, b = normal_equations(lin, n, lam, shard)
     if cfg.preconditioner == "chain":
         precond = _chain_precond(g, cfg, lam)
     elif shard is _WHOLE:
-        precond = _diag_precond(g, loop_w, gps_w, cfg, lam)
+        precond = _diag_precond(g, lin.loop_w, lin.gps_w, cfg, lam)
     else:
         # a rank holds only its own factors' weights: the distributed
         # solver's Jacobi is the odometry-dominated diagonal, as JAX's

@@ -22,7 +22,7 @@ iteration.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,14 +42,20 @@ class IcpResult(NamedTuple):
     accepted: torch.Tensor     # () bool fitness <= thresh and >= 10 corr
 
 
-def nearest_neighbors_plain(src: torch.Tensor, tgt: torch.Tensor,
-                            tgt_valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def nearest_neighbors_plain(src: torch.Tensor, tgt: torch.Tensor, tgt_valid: torch.Tensor,
+                            slot_mask: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of kernels K3 and K3-T (any device): the
     (..., Nq, Nt) subtract-square matrix on elementwise ops (no contracted
     multiply-add, so d² is bit-equal to the kernels'), invalid targets at
     +inf, then ``argmin`` (first index on ties; 0 for an all-invalid target
     set).  src (..., Nq, 2), tgt (..., Nt, 2), tgt_valid (..., Nt); leading
-    dims are independent problems (K3-T's slots)."""
+    dims are independent problems (K3-T's slots).  ``slot_mask`` (the
+    leading dims, bool, optional): a problem where it is False has no valid
+    target, so each of its queries gets (+inf, 0), as K3-T gives a masked
+    slot."""
+    if slot_mask is not None:
+        tgt_valid = tgt_valid & slot_mask[..., None]
     dx = src[..., 0:1] - tgt[..., None, :, 0]
     dy = src[..., 1:2] - tgt[..., None, :, 1]
     d2 = dx * dx + dy * dy
@@ -70,17 +76,21 @@ def nearest_neighbors(src: torch.Tensor, tgt: torch.Tensor, tgt_valid: torch.Ten
     return nearest_neighbors_plain(src, tgt, tgt_valid)
 
 
-def nearest_neighbors_multi(src: torch.Tensor, tgt: torch.Tensor, tgt_valid: torch.Tensor
+def nearest_neighbors_multi(src: torch.Tensor, tgt: torch.Tensor, tgt_valid: torch.Tensor,
+                            slot_mask: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``nearest_neighbors`` for T problems at once: (T, Nq, 2), (T, Nt, 2),
-    (T, Nt) -> (T, Nq) d² and first index.  A CUDA tensor runs kernel K3-T
-    (one launch for every slot), a CPU tensor the plain version."""
+    (T, Nt) -> (T, Nq) d² and first index; with ``slot_mask`` (T,) only the
+    slots where it holds are computed, the others give (+inf, 0).  A CUDA
+    tensor runs kernel K3-T (one launch for every slot), a CPU tensor the
+    plain version."""
     if src.device.type == "cuda":
-        return nn_dist.nearest_neighbors_multi_cuda(src.contiguous(), tgt.contiguous(),
-                                                    tgt_valid.contiguous())
+        return nn_dist.nearest_neighbors_multi_cuda(
+            src.contiguous(), tgt.contiguous(), tgt_valid.contiguous(),
+            None if slot_mask is None else slot_mask.contiguous())
     if src.device.type != "cpu":
         raise ValueError(f"nearest_neighbors_multi: unsupported device {src.device}")
-    return nearest_neighbors_plain(src, tgt, tgt_valid)
+    return nearest_neighbors_plain(src, tgt, tgt_valid, slot_mask)
 
 
 def _weighted_se2_horn(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor
@@ -183,7 +193,10 @@ def icp_se2_multi(src: torch.Tensor, src_valid: torch.Tensor, tgt: torch.Tensor,
     freezes once it converges, so slot t ends where ``icp_se2`` on its own
     problem ends.  Slots with ``active`` False (no candidate, or an empty
     slot) start converged: their result is meaningless and the caller
-    replaces it, as the vmapped ``lax.cond`` selects it away.  The host
+    replaces it, as the vmapped ``lax.cond`` selects it away.  K3-T computes
+    only the slots that still move (its slot mask: the unconverged ones,
+    then ``active`` for the final fitness); a frozen slot's (+inf, 0)
+    neighbours feed only values that the freeze discards.  The host
     reads "every slot converged" once every ``_CHECK_EVERY`` iterations
     (from iteration 0, so a segment without a candidate runs no iteration),
     never one slot's flag."""
@@ -196,7 +209,8 @@ def icp_se2_multi(src: torch.Tensor, src_valid: torch.Tensor, tgt: torch.Tensor,
         if it % _CHECK_EVERY == 0 and bool(converged.all()):
             break
         moved = geo.se2_apply(pose, src)
-        nn_d2, nn_idx = nearest_neighbors_multi(moved, tgt, tgt_valid)
+        # converged covers ~active, so this is active & ~converged
+        nn_d2, nn_idx = nearest_neighbors_multi(moved, tgt, tgt_valid, ~converged)
         w = (src_valid & (nn_d2 < max_d2)).to(torch.float32)
         mse = torch.sum(w * nn_d2, dim=-1) / torch.clamp(torch.sum(w, dim=-1), min=1.0)
         matched = torch.gather(tgt, 1, nn_idx[..., None].expand(-1, -1, 2))
@@ -211,9 +225,9 @@ def icp_se2_multi(src: torch.Tensor, src_valid: torch.Tensor, tgt: torch.Tensor,
         prev_mse = torch.where(converged, prev_mse, mse)
         converged = converged | small | mse_static
 
-    # the final fitness, as icp_se2: one K3-T call
+    # the final fitness, as icp_se2: one K3-T call on the active slots
     moved = geo.se2_apply(pose, src)
-    nn_d2, _ = nearest_neighbors_multi(moved, tgt, tgt_valid)
+    nn_d2, _ = nearest_neighbors_multi(moved, tgt, tgt_valid, active)
     in_range = src_valid & (nn_d2 < max_d2)
     n = torch.sum(in_range, dim=-1)
     if cfg.fitness_metric == "whitened":

@@ -1,13 +1,15 @@
 """Kernel K3: brute-force 2-D nearest neighbours as a CUDA kernel
 (csrc/nn_dist.cu), for one problem (``nearest_neighbors_cuda``) and for T
 problems in one launch (K3-T, ``nearest_neighbors_multi_cuda``: the
-``jax.vmap`` of the TPU kernel through the streaming segment's T-slot ICP).
+``jax.vmap`` of the TPU kernel through the streaming segment's T-slot ICP),
+with an optional device-side mask of the slots to compute.
 
 Replaces the TPU kernel ``navtech_radar_slam_tpu/ops/pallas/nn_dist.py::
 nearest_neighbors_pallas``; its plain PyTorch version is
 ``navtech_radar_slam_torch.ops.icp.nearest_neighbors_plain``, which takes K3-T's
-slots as a leading dim.  The design note
-(query tiles x target chunks, one thread block cluster per query tile) is at
+slots as a leading dim and the same slot mask.  The design note (masked
+slots leave at once, each block pairs only the valid targets of its chunk,
+query tiles x target chunks, one thread block cluster per query tile) is at
 the top of the CUDA source; ``launch_geometry`` is the host side of it.
 """
 
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,7 +29,7 @@ launch_count = 0
 multi_launch_count = 0
 
 #: queries per block (kTileQ in the source)
-QUERY_TILE = 16
+QUERY_TILE = 32
 #: most target chunks per query tile: the blocks of one cluster (kMaxChunks)
 MAX_CHUNKS = 8
 #: fewest targets a chunk holds before the chunk count is cut
@@ -49,7 +51,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.nn_dist_multi_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     for name, want in (("nn_dist_query_tile", QUERY_TILE),
                        ("nn_dist_max_chunks", MAX_CHUNKS),
@@ -102,13 +104,17 @@ def nearest_neighbors_cuda(src: torch.Tensor, tgt: torch.Tensor,
 
 
 def nearest_neighbors_multi_cuda(src: torch.Tensor, tgt: torch.Tensor,
-                                 tgt_valid: torch.Tensor
+                                 tgt_valid: torch.Tensor,
+                                 slot_mask: Optional[torch.Tensor] = None
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3-T: src (T, Nq, 2), tgt (T, Nt, 2) float32 and tgt_valid (T, Nt)
     bool, all CUDA -> (min squared distance (T, Nq) float32, first argmin
     index within the slot's targets (T, Nq) int64); slot t is what
     ``nearest_neighbors_cuda(src[t], tgt[t], tgt_valid[t])`` gives, bit for
-    bit, in one launch for all T problems.
+    bit, in one launch for all T problems.  ``slot_mask`` ((T,) bool on the
+    same device, optional): a slot where it is False computes nothing and
+    gets (+inf, 0) for every query, what a query with no valid target gets;
+    the mask is read on the device only.
 
     Launches on the current stream and does not synchronise; no slot or no
     query gives an empty result and no launch.  Raises on any input the
@@ -130,6 +136,13 @@ def nearest_neighbors_multi_cuda(src: torch.Tensor, tgt: torch.Tensor,
                          f"tensors, got {tuple(src.shape)}, {tuple(tgt.shape)}, "
                          f"{tuple(tgt_valid.shape)}")
     t, nq, nt = src.shape[0], src.shape[1], tgt.shape[1]
+    if slot_mask is not None:
+        if slot_mask.device != dev or slot_mask.dtype != torch.bool:
+            raise ValueError(f"{fn}: slot_mask must be a bool tensor on {dev}, got "
+                             f"{slot_mask.dtype} on {slot_mask.device}")
+        if tuple(slot_mask.shape) != (t,) or not slot_mask.is_contiguous():
+            raise ValueError(f"{fn}: slot_mask must be contiguous ({t},), got "
+                             f"{tuple(slot_mask.shape)}")
     if t > MAX_SLOTS:
         raise ValueError(f"{fn}: {t} slots, at most {MAX_SLOTS}")
     dmin = torch.empty((t, nq), dtype=torch.float32, device=dev)
@@ -138,7 +151,8 @@ def nearest_neighbors_multi_cuda(src: torch.Tensor, tgt: torch.Tensor,
         return dmin, idx
     lib = LIBRARY.load()
     _, chunks, chunk_len = launch_geometry(nq, nt)
-    args = (src.data_ptr(), tgt.data_ptr(), tgt_valid.data_ptr(), dmin.data_ptr(),
+    args = (src.data_ptr(), tgt.data_ptr(), tgt_valid.data_ptr(),
+            None if slot_mask is None else slot_mask.data_ptr(), dmin.data_ptr(),
             idx.data_ptr(), t, nq, nt, chunks, chunk_len)
     same = dev.index == torch.cuda.current_device()
     with contextlib.nullcontext() if same else torch.cuda.device(dev):

@@ -55,6 +55,20 @@ def _halving_sum(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0]
 
 
+def _doubling_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum over the last axis by doubling shifts (element i
+    adds element i - s for s = 1, 2, 4, ...), each an elementwise add.  As
+    with ``_halving_sum``, the order of the adds depends only on the length,
+    so a batch of rows (``torch.func.vmap``) sums each row exactly as that
+    row alone; CUDA's scan kernel orders a row's adds by the number of rows."""
+    n = x.shape[-1]
+    s = 1
+    while s < n:
+        x = x + torch.nn.functional.pad(x[..., :-s], (s, 0))
+        s *= 2
+    return x
+
+
 def spectral_inlier_scores(matches: MatchSet, cfg: RegistrationConfig) -> torch.Tensor:
     """Leading-eigenvector scores of the pairwise-consistency graph
     (A_ij = 1 iff the TIM lengths agree within the gate), by a fixed number
@@ -138,12 +152,22 @@ def gnc_rotation(
     return theta, w
 
 
+def _cumulative_weights(w: torch.Tensor) -> torch.Tensor:
+    """Non-decreasing prefix sums of non-negative weights, the same bits at
+    any batch size: ``_doubling_cumsum`` under a running maximum.  The
+    doubling adds round each prefix in its own order, so past a zero weight
+    a prefix can come out one ulp below the one before it; the maximum is
+    exact in any order."""
+    return torch.cummax(_doubling_cumsum(w), dim=-1).values
+
+
 def _weighted_median(vals: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Lower weighted median: stable argsort, then the first index whose
-    cumulative weight reaches half the total (``searchsorted`` side left)."""
+    cumulative weight (``_cumulative_weights``, non-decreasing as
+    ``searchsorted`` needs) reaches half the total (side left)."""
     order = torch.argsort(vals, stable=True)
     vs = vals[order]
-    cw = torch.cumsum(w[order], dim=0)
+    cw = _cumulative_weights(w[order])
     total = torch.clamp(cw[-1], min=1e-9)
     idx = torch.searchsorted(cw, (0.5 * total).reshape(1), right=False)
     return vs[torch.clamp(idx, 0, vals.shape[0] - 1)][0]
@@ -219,8 +243,12 @@ def anisotropic_refine(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Joint (theta, t) Gauss-Newton over inliers with per-point anisotropic
     information and Cauchy robustness; residual e_i = R a_i + t - b_i,
-    Jacobian [I2 | dR/dtheta a_i].  The contractions run in true fp32 (TF32
-    is off): they sum metric coordinates of up to ~80 m."""
+    Jacobian [I2 | dR/dtheta a_i].  The contractions run in true fp32: each
+    point's products with its 2 x 2 information are elementwise, and the
+    sums over the points are ``_halving_sum``'s, so under ``torch.func.vmap``
+    each stream sums as that stream alone (the batched matmul an einsum
+    becomes chose its order of summation by the batch size on the card);
+    they sum metric coordinates of up to ~80 m."""
     W = point_information(b, cfg) * valid[:, None, None].to(torch.float32)
     eye = torch.eye(2, dtype=a.dtype, device=a.device).expand(a.shape[0], 2, 2)
     theta, t = theta0, t0
@@ -230,11 +258,15 @@ def anisotropic_refine(
         dRa = torch.stack([-s * a[:, 0] - c * a[:, 1], c * a[:, 0] - s * a[:, 1]],
                           dim=-1)
         J = torch.cat([eye, dRa[:, :, None]], dim=2)                # (M, 2, 3)
-        r2 = torch.einsum("mi,mij,mj->m", e, W, e)
-        Wr = W * (1.0 / (1.0 + r2))[:, None, None]
-        H = torch.einsum("mji,mjk,mkl->il", J, Wr, J) + 1e-6 * torch.eye(
+        We = torch.sum(W * e[:, None, :], dim=-1)                   # (M, 2)
+        r2 = torch.sum(e * We, dim=-1)
+        rho = (1.0 / (1.0 + r2))[:, None, None]
+        WrJ = torch.sum((W * rho)[:, :, :, None] * J[:, None, :, :], dim=2)   # (M, 2, 3)
+        Hm = torch.sum(J[:, :, :, None] * WrJ[:, :, None, :], dim=1)        # (M, 3, 3)
+        gm = torch.sum(J * (We[:, :, None] * rho[:, :, 0, None]), dim=1)    # (M, 3)
+        H = _halving_sum(Hm.permute(1, 2, 0)) + 1e-6 * torch.eye(
             3, dtype=a.dtype, device=a.device)
-        g = torch.einsum("mji,mjk,mk->i", J, Wr, e)
+        g = _halving_sum(gm.T)
         delta = _solve3x3(H, -g)
         theta, t = theta + delta[2], t + delta[:2]
     return theta, t

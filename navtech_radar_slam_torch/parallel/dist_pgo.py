@@ -2,7 +2,7 @@
 
 Counterpart of ``navtech_radar_slam_tpu/parallel/dist_pgo.py``.  The
 normal-equation matvec H v = Jᵀ (J v) decomposes over factors, so each rank
-evaluates the pullbacks through its own block of the factors and one
+linearizes its own block of the factors once per GN step and one
 ``all_reduce(SUM)`` merges the partial matvecs (one more merges b):
 
   * odometry and GPS factors by node block, rank r the nodes
@@ -16,7 +16,7 @@ single-device ``PoseGraph`` keeps them: 4096 × 21 floats of node arrays at
 the default capacity); each rank evaluates only its block.  Poses are
 replicated, and CG with its chain or Jacobi preconditioner runs replicated
 on every rank.  The GN step is the single-device solver's
-(``models/posegraph.py``: its ``torch.func.vjp`` matvec and its chain
+(``models/posegraph.py``: its per-factor Jacobian blocks and its chain
 preconditioner) run with this rank's ``FactorShard``: JAX's
 ``_local_residuals`` and ``_sharded_gn_step`` are ``posegraph.residuals`` and
 ``posegraph._gn_step`` on that shard.

@@ -177,6 +177,27 @@ def test_vmapped_spectral_scores_are_batch_invariant():
         assert bool((one[-3:] == 0).all()) and float(one.max()) > 0
 
 
+@pytest.mark.parametrize("n", [1, 6, 33])
+def test_batched_descriptors_do_not_depend_on_batch_size(n):
+    """``_descriptors_batched`` runs calls of one shape (32 streams at 64
+    features, the last call padded with featureless streams): each of the
+    first ``n`` streams gets the bits it gets in a batch of 40 (two calls),
+    within 1e-6 of ``constellation_descriptors`` on the stream alone; a
+    padded stream is never returned."""
+    rng = np.random.default_rng(8)
+    k = 64
+    xy = t(rng.uniform(-40, 40, (40, k, 2)).astype(np.float32))
+    power = t(rng.uniform(0, 1, (40, k)).astype(np.float32))
+    valid = t(rng.random((40, k)) < 0.8)
+    whole = todo._descriptors_batched(xy, power, valid, CFG)
+    got = todo._descriptors_batched(xy[:n], power[:n], valid[:n], CFG)
+    assert got.shape == (n, k, CFG.features.desc_grid ** 2)
+    assert torch.equal(got, whole[:n])
+    for b in range(n):
+        one = tfeat.constellation_descriptors(xy[b], power[b], valid[b], CFG.features)
+        np.testing.assert_allclose(np_(got[b]), np_(one), rtol=0, atol=1e-6)
+
+
 def _tied_scores(rng, n_scans=4, na=12, nb=40):
     """(n_scans, na, nb) score maps with coarse values (many ties) and -inf
     elsewhere; scan 1 has 5 finite entries, scan 2 none."""
@@ -287,3 +308,39 @@ def test_batched_kernel_row_past_the_limit_raises_on_cuda(cuda_device):
         cen_peaks.cen2019_scores_batched_cuda(torch.zeros((2, 400, 7035), device=cuda_device),
                                               CFG.features, rcfg)
     assert cen_peaks.batched_launch_count == before
+
+
+@pytest.mark.cuda
+def test_batched_step_is_batch_size_invariant_on_cuda(cuda_device):
+    """The default config at full size, B = 64 streams in one step against
+    the same streams in two steps of B = 32 (as two mesh ranks run them):
+    ``rel_pose``, ``ok``, the de-skewed xy and every other leaf of the seed
+    and the step bit-equal (``torch.equal``).  CUDA chose the order of some
+    batched sums by the batch size (the weighted median's prefix sum, the
+    Gauss-Newton polish's einsum, and the descriptor matmul past 65,535
+    products)."""
+    from navtech_radar_slam_torch.config import SlamConfig
+    from navtech_radar_slam_torch.data import RadarSimulator as PortSimulator
+
+    cfg = SlamConfig()
+    sim = PortSimulator(cfg.radar)
+    gt = sim.circuit_trajectory(17)
+    scans = np.stack([sim.render(gt[i], noise_seed=i) for i in range(17)])
+    idx = np.arange(64) % 16
+    prev, curr = (t(scans[idx + i], cuda_device) for i in (0, 1))
+    az = t(todo.default_azimuths(cfg), cuda_device)
+    step = todo.make_batched_odometry_step(cfg, device=cuda_device)
+
+    def run(sl):
+        seed = todo.extract_scan_features_batched(prev[sl], az, cfg)
+        out = step(curr[sl], az, seed, torch.zeros((prev[sl].shape[0], 3), device=cuda_device))
+        return [seed] + list(out)
+
+    whole = run(slice(0, 64))
+    halves = [run(slice(0, 32)), run(slice(32, 64))]
+    torch.cuda.synchronize()
+    for part, (w, a, b) in enumerate(zip(whole, *halves)):
+        for name, x, y, z in zip(w._fields, w, a, b):
+            if x is not None:
+                assert torch.equal(x, torch.cat([y, z])), (part, name)
+    assert whole[3].xy.shape == (64, cfg.features.max_features, 2)

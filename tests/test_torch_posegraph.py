@@ -235,3 +235,61 @@ def test_capacity_guard_and_grow():
     assert int(g.g.num_nodes) == 3 and bool(g.g.odom_valid[2]) and bool(g.g.loop_valid[0])
     np.testing.assert_allclose(g.poses()[1], _se3(1.0, 0.0, 0.0))
     assert torch.equal(g.g.poses[3], torch.eye(4))
+
+
+def _dense_normal_equations(g, lin, shard):
+    """JᵀJ and Jᵀr of ``residuals`` on ``shard`` at delta = 0, J the dense
+    Jacobian from ``torch.autograd.functional.jacobian``."""
+    n = g.poses.shape[0]
+    f = lambda d: tpg.residuals(d, g, lin.loop_w, lin.gps_w, CFG, shard)  # noqa: E731
+    zero = torch.zeros((n, 6))
+    jac = torch.autograd.functional.jacobian(f, zero).reshape(-1, 6 * n)
+    return jac.T @ jac, jac.T @ f(zero)
+
+
+@pytest.mark.parametrize("shard", ["whole", "node_and_loop_block", "no_loops"])
+def test_block_matvec_matches_dense_jacobian(shard):
+    """H v and b from the per-factor blocks formed once per GN step against
+    the dense JᵀJ v and Jᵀr of ``residuals`` (loops, GPS, an outlier loop, a
+    loop on node 0, padding), on the whole graph and on ``FactorShard``s as
+    the distributed solver cuts them.  Tolerance: float32 rounding of sums
+    taken in another order (relative to the largest entry)."""
+    both = looped(11, outlier=True, gps=True)
+    g = both.t.g
+    n = g.poses.shape[0]
+    shard = {"whole": tpg._WHOLE,
+             "node_and_loop_block": tpg.FactorShard(slice(16, 48), slice(0, 8), lambda x: x,
+                                                    None),
+             "no_loops": tpg.FactorShard(slice(48, 64), slice(0, 0), lambda x: x, None)}[shard]
+    lin = tpg.linearize(g, CFG, shard)
+    matvec, b = tpg.normal_equations(lin, n, 0.0, shard)
+    h, jtr = _dense_normal_equations(g, lin, shard)
+    rng = np.random.default_rng(12)
+    for v in (rng.normal(0, 1, 6 * n), rng.normal(0, 1e-3, 6 * n)):
+        v = t(v.astype(np.float32))
+        want = np_(h @ v)
+        np.testing.assert_allclose(np_(matvec(v)), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+    np.testing.assert_allclose(np_(b), -np_(jtr), rtol=0, atol=1e-5 * np.abs(np_(jtr)).max())
+    # node 0 is the gauge: its rows and columns of H are zero
+    assert not np_(matvec(t(np.eye(6 * n, dtype=np.float32)[3]))).any()
+
+
+def test_matvec_is_a_few_ops():
+    """One CG matvec is a fixed few dozen ops whatever the graph holds (the
+    double vjp it replaced dispatched ~1,200)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    both = looped(13, outlier=True, gps=True)
+    n = both.t.g.poses.shape[0]
+    matvec, b = tpg.normal_equations(tpg.linearize(both.t.g, CFG), n, 1e-6)
+    with Count():
+        matvec(b)
+    assert 0 < Count.ops < 40, Count.ops

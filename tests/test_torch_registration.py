@@ -123,6 +123,40 @@ def test_weighted_median_with_ties_matches_jax():
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_weighted_median_with_zero_weights_matches_jax(seed):
+    """Half the matches invalid, so half the weights zero: past some of
+    them the doubling prefix sums come out an ulp below their predecessor.
+    The cumulative weights the median searches are non-decreasing all the
+    same, and the median seed is the lower weighted median of a float64
+    prefix sum, as JAX's."""
+    n = 300
+    rng = np.random.default_rng(seed)
+    vals = rng.uniform(-5, 5, (n, 2)).astype(np.float32)
+    sigma = rng.uniform(0.05, 3.0, n).astype(np.float32)
+    valid = rng.random(n) < 0.5
+    w = np.where(valid, 1.0 / np.maximum(sigma, np.float32(1e-6)), 0).astype(np.float32)
+    raw = [np_(treg._doubling_cumsum(t(w[np.argsort(vals[:, c], kind="stable")])))
+           for c in range(2)]
+    assert any((np.diff(r) < 0).any() for r in raw)      # the case this checks
+    for c in range(2):
+        cw = np_(treg._cumulative_weights(t(w[np.argsort(vals[:, c], kind="stable")])))
+        assert (np.diff(cw) >= 0).all()
+        np.testing.assert_allclose(cw, raw[c], rtol=2e-6, atol=0)
+    want = []
+    for c in range(2):
+        order = np.argsort(vals[:, c], kind="stable")
+        cw64 = np.cumsum(w[order].astype(np.float64))
+        want.append(vals[order, c][np.searchsorted(cw64, 0.5 * cw64[-1])])
+    a = np.zeros((n, 2), np.float32)
+    cfg = RegistrationConfig(cote_iters=0)
+    got = np_(treg.robust_translation(*map(t, (a, vals, sigma, valid)), t(np.float32(0.0)), cfg))
+    np.testing.assert_array_equal(got, np.asarray(want, np.float32))
+    jax_t = np.asarray(jreg.robust_translation(*map(jnp.asarray, (a, vals, sigma, valid)),
+                                               jnp.float32(0.0), cfg))
+    np.testing.assert_array_equal(got, jax_t)
+
+
 def test_solve3x3_and_refine_match_jax():
     rng = np.random.default_rng(4)
     A = rng.standard_normal((3, 3)).astype(np.float32)
@@ -154,3 +188,40 @@ def test_register_scans_matches_jax(M, n_out):
     assert int(got.num_inliers) == int(want.num_inliers)
     assert bool(got.ok) == bool(want.ok)
     np.testing.assert_array_equal(np_(got.inlier_mask), np.asarray(want.inlier_mask))
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 256, 513])
+def test_doubling_cumsum_is_a_prefix_sum(n):
+    """The weighted median's prefix sum by doubling shifts: integers summed
+    exactly, floats within float32 rounding of a float64 cumsum, and each
+    row of a batch bit-equal to that row alone."""
+    import torch
+
+    rng = np.random.default_rng(n)
+    ints = rng.integers(0, 100, (3, n)).astype(np.float32)
+    np.testing.assert_array_equal(np_(treg._doubling_cumsum(t(ints))), np.cumsum(ints, -1))
+    x = rng.uniform(0, 1, (3, n)).astype(np.float32)
+    got = np_(treg._doubling_cumsum(t(x)))
+    np.testing.assert_allclose(got, np.cumsum(x.astype(np.float64), -1), rtol=2e-6, atol=0)
+    for row in range(3):
+        assert torch.equal(treg._doubling_cumsum(t(x[row])), treg._doubling_cumsum(t(x))[row])
+
+
+def test_refine_under_vmap_is_batch_invariant():
+    """``anisotropic_refine``'s sums over the points are elementwise halving
+    adds, so under ``torch.func.vmap`` each stream of a batch of 5 refines
+    bit for bit as that stream alone."""
+    import torch
+
+    rng = np.random.default_rng(31)
+    sets = [make_matchset_np(rng, M=256, n_outliers=0) for _ in range(5)]
+    a = t(np.stack([d["src_xy"] for d in sets]))
+    b = t(np.stack([d["dst_xy"] for d in sets]))
+    valid = t(np.stack([d["valid"] for d in sets]))
+    theta0, t0 = t(np.full(5, 0.07, np.float32)), t(np.tile(np.float32([1.1, -0.3]), (5, 1)))
+    refine = lambda *x: treg.anisotropic_refine(*x, CFG)   # noqa: E731
+    th, tr = torch.func.vmap(refine)(a, b, valid, theta0, t0)
+    for s in range(5):
+        th1, tr1 = refine(a[s], b[s], valid[s], theta0[s], t0[s])
+        assert torch.equal(th[s], th1) and torch.equal(tr[s], tr1)
+    np.testing.assert_allclose(np_(th), 0.08, atol=1e-3)

@@ -132,6 +132,38 @@ def test_plain_k3t_matches_vmapped_tpu_kernel():
         np.testing.assert_array_equal(gd[s], np_(sd))
 
 
+def test_masked_plain_k3t_matches_vmapped_tpu_kernel():
+    """The slot mask of K3-T's plain version: on a selected slot the
+    vmapped TPU kernel's result (identical indices, d² within 1 ulp), on a
+    masked slot (+inf, 0) for every query, what an all-invalid slot gives."""
+    rng = np.random.default_rng(4)
+    n_slots, nq, nt = 4, 150, 600
+    src = rng.uniform(-150, 150, (n_slots, nq, 2)).astype(np.float32)
+    tgt = rng.uniform(-150, 150, (n_slots, nt, 2)).astype(np.float32)
+    valid = rng.random((n_slots, nt)) >= np.asarray([0.3, 0.0, 0.8, 0.5])[:, None]
+    tgt[:, 9] = tgt[:, 4]                      # ties: index 4 must win
+    src[:, 0] = tgt[:, 4] + np.float32(0.25)
+    valid[:, [4, 9]] = True
+    mask = np.asarray([True, False, True, False])
+    fn = jax.vmap(lambda a, b, v: nearest_neighbors_pallas(a, b, v, interpret=True))
+    wd, wi = (np.asarray(x) for x in fn(jnp.asarray(src), jnp.asarray(tgt),
+                                        jnp.asarray(valid)))
+    gd, gi = (np_(x) for x in ticp.nearest_neighbors_multi(t(src), t(tgt), t(valid),
+                                                           t(mask)))
+    np.testing.assert_array_equal(gi[mask], wi[mask])
+    np.testing.assert_allclose(gd[mask], wd[mask], rtol=2e-7, atol=0)
+    assert (gi[mask, 0] == 4).all()
+    assert np.isinf(gd[~mask]).all() and (gi[~mask] == 0).all()
+    # a masked slot is an all-invalid one; a selected slot is unchanged
+    ad, ai = (np_(x) for x in ticp.nearest_neighbors_plain(
+        t(src), t(tgt), t(valid & mask[:, None])))
+    np.testing.assert_array_equal(gd, ad)
+    np.testing.assert_array_equal(gi, ai)
+    ud, ui = (np_(x) for x in ticp.nearest_neighbors_plain(t(src), t(tgt), t(valid)))
+    np.testing.assert_array_equal(gd[mask], ud[mask])
+    np.testing.assert_array_equal(gi[mask], ui[mask])
+
+
 @pytest.mark.parametrize("voxel", [0.4, 1.0, 0.0])
 def test_voxel_mask_batched_matches_vmap(voxel):
     rng = np.random.default_rng(1)
@@ -260,6 +292,47 @@ def test_verify_candidate_multi_matches_vmapped_jax():
     assert bool(one.accepted) == bool(got.accepted[0])
 
 
+def test_verify_candidate_multi_slot_mask_changes_no_kept_value(monkeypatch):
+    """The T-slot ICP masks K3-T to the unconverged slots (and to the active
+    ones for the final fitness): every slot that runs ends bit for bit where
+    a run computing every slot on every call ends, and no kept value is
+    NaN; the JAX comparison is test_verify_candidate_multi_matches_vmapped_jax."""
+    clouds, valid, poses, path = _verify_state()
+    ks = np.asarray([22, 23, 24, 25, 26])
+    cand = tsc.LoopCandidate(
+        idx=t(np.asarray([1, 2, -1, 11, 5], np.int64)),
+        dist=t(np.asarray([0.1, 0.12, np.inf, 0.3, 0.2], np.float32)),
+        yaw=t(np.asarray([0.0, 0.05, 0.0, 0.1, 0.0], np.float32)),
+        found=t(np.asarray([True, True, False, True, True])))
+    active = t(np.asarray([True, True, True, True, False]))
+    masks = []
+    nn = ticp.nearest_neighbors_multi
+
+    def recorded(src, tgt, tgt_valid, slot_mask=None):
+        masks.append(None if slot_mask is None else np_(slot_mask).copy())
+        return nn(src, tgt, tgt_valid, slot_mask)
+
+    def run():
+        return tslam._verify_candidate_multi(
+            cand, t(clouds), t(valid), t(poses), t(clouds[ks]), t(valid[ks]),
+            t(ks + 1), active, CFG, path_cum=t(path), session_start=0)
+
+    monkeypatch.setattr(ticp, "nearest_neighbors_multi", recorded)
+    masked = run()
+    # the masks narrow as slots converge; the final call computes every
+    # slot that runs (found and active)
+    runs = np_(cand.found & active)
+    assert all(m is not None for m in masks) and (masks[-1] == runs).all()
+    assert (masks[0] == runs).all() and any(m.sum() < runs.sum() for m in masks[:-1])
+    monkeypatch.setattr(ticp, "nearest_neighbors_multi",
+                        lambda src, tgt, tgt_valid, slot_mask=None: nn(src, tgt, tgt_valid))
+    every = run()
+    for name, a, b in zip(masked._fields, masked, every):
+        assert torch.equal(a, b), name
+        if a.is_floating_point():
+            assert not torch.isnan(a).any(), name
+
+
 def test_icp_multi_with_no_active_slot_runs_no_iteration(monkeypatch):
     """Every slot starts converged: the first check stops the loop, and
     only the final-fitness call of K3-T remains."""
@@ -382,3 +455,78 @@ def test_k3t_kernel_ties_and_raises_on_cuda(cuda_device):  # noqa: F811
         nn_dist.nearest_neighbors_multi_cuda(src, tgt[:2], valid[:2])
     with pytest.raises(TypeError, match="bool"):
         nn_dist.nearest_neighbors_multi_cuda(src, tgt, valid.float())
+
+
+@pytest.mark.cuda
+def test_masked_k3t_kernel_matches_plain_on_cuda(cuda_device):  # noqa: F811
+    """The slot mask on the card: 16 slots at (1024, 8192) with masks that
+    differ per slot and half the slots masked off, exact against the masked
+    plain version (the same indices, d² and +inf entries); a selected slot
+    bit-equal to the unmasked launch and to K3; one launch a call."""
+    rng = np.random.default_rng(21)
+    n_slots, nq, nt = 16, 1024, 8192
+    src = t(rng.uniform(-150, 150, (n_slots, nq, 2)).astype(np.float32), cuda_device)
+    tgt = t(rng.uniform(-150, 150, (n_slots, nt, 2)).astype(np.float32), cuda_device)
+    valid = t(rng.random((n_slots, nt)) >= np.linspace(0, 0.9, n_slots)[:, None], cuda_device)
+    mask = t(np.arange(n_slots) % 2 == 0, cuda_device)
+    before = nn_dist.multi_launch_count
+    gd, gi = nn_dist.nearest_neighbors_multi_cuda(src, tgt, valid, mask)
+    torch.cuda.synchronize()
+    assert nn_dist.multi_launch_count == before + 1
+    wd, wi = ticp.nearest_neighbors_plain(src, tgt, valid, mask)
+    np.testing.assert_array_equal(np_(gi), np_(wi))
+    np.testing.assert_array_equal(np_(gd), np_(wd))
+    assert torch.isinf(gd[~mask]).all() and (gi[~mask] == 0).all()
+    ud, ui = nn_dist.nearest_neighbors_multi_cuda(src, tgt, valid)
+    np.testing.assert_array_equal(np_(gd[mask]), np_(ud[mask]))
+    np.testing.assert_array_equal(np_(gi[mask]), np_(ui[mask]))
+    od, oi = nn_dist.nearest_neighbors_cuda(src[0], tgt[0], valid[0])
+    np.testing.assert_array_equal(np_(gd[0]), np_(od))
+    np.testing.assert_array_equal(np_(gi[0]), np_(oi))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ties_across_chunks", "all_slots_masked",
+                                  "all_targets_invalid", "prefix_valid"])
+def test_masked_k3t_kernel_edge_cases_on_cuda(case, cuda_device):  # noqa: F811
+    """Ties of every target across the 8 chunks (the first valid copy wins,
+    in a selected slot beside masked ones), every slot masked, every target
+    invalid in selected slots, and valid targets as a prefix (how the
+    submap packs them): exact against the masked plain version."""
+    rng = np.random.default_rng(22)
+    n_slots = 4
+    base = rng.uniform(-150, 150, (n_slots, 1024, 2)).astype(np.float32)
+    tgt = t(np.tile(base, (1, 8, 1)), cuda_device)
+    src = t(rng.uniform(-150, 150, (n_slots, 700, 2)).astype(np.float32), cuda_device)
+    valid = torch.ones((n_slots, 8192), dtype=torch.bool, device=cuda_device)
+    valid[1, :1024] = False
+    mask = torch.tensor([True, True, False, True], device=cuda_device)
+    if case == "all_slots_masked":
+        mask[:] = False
+    elif case == "all_targets_invalid":
+        valid[:] = False
+    elif case == "prefix_valid":
+        valid[:] = torch.arange(8192, device=cuda_device) < torch.tensor(
+            [[3000], [1], [8192], [4097]], device=cuda_device)
+    gd, gi = nn_dist.nearest_neighbors_multi_cuda(src, tgt, valid, mask)
+    wd, wi = ticp.nearest_neighbors_plain(src, tgt, valid, mask)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(np_(gi), np_(wi))
+    np.testing.assert_array_equal(np_(gd), np_(wd))
+    if case == "ties_across_chunks":
+        assert (np_(gi[0]) < 1024).all() and ((np_(gi[1]) >= 1024) & (np_(gi[1]) < 2048)).all()
+    if case in ("all_slots_masked", "all_targets_invalid"):
+        assert torch.isinf(gd).all() and (gi == 0).all()
+
+
+@pytest.mark.cuda
+def test_masked_k3t_kernel_refuses_a_bad_mask_on_cuda(cuda_device):  # noqa: F811
+    x = torch.zeros((2, 64, 2), device=cuda_device)
+    v = torch.ones((2, 64), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="slot_mask"):
+        nn_dist.nearest_neighbors_multi_cuda(x, x, v, torch.ones(2, device=cuda_device))
+    with pytest.raises(ValueError, match="slot_mask"):
+        nn_dist.nearest_neighbors_multi_cuda(x, x, v, torch.ones(3, dtype=torch.bool,
+                                                                  device=cuda_device))
+    with pytest.raises(ValueError, match="slot_mask"):
+        nn_dist.nearest_neighbors_multi_cuda(x, x, v, torch.ones(2, dtype=torch.bool))

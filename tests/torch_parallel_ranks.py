@@ -182,3 +182,29 @@ def two_process_problem(mesh, bank: np.ndarray, graph_arrays, cfg_d: dict) -> di
 def pgo_fields(cfg) -> dict:
     """A PgoConfig (of either package) as the fields ``PgoConfig(**d)`` takes."""
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+if __name__ == "__main__":
+    # PYTHONPATH=. python tests/torch_parallel_ranks.py [runs]: bucket_cost's
+    # bucketed and full-capacity seconds and their ratio on 4 gloo CPU ranks,
+    # on the graph and config that test_torch_parallel.py::
+    # test_bucketed_distributed_refine_cheaper_than_full times
+    import sys
+
+    from navtech_radar_slam_torch.parallel.launch import launch
+    from test_torch_parallel import BASE_PGO, SOLVES, _chain
+
+    import torch_parallel_ranks
+
+    fields = dict(BASE_PGO, max_nodes=4096, max_loop_edges=8, gn_iters=1, cg_iters=16,
+                  cg_tol=0.0)
+    rng = np.random.default_rng(0)
+    for nmax, lmax, nodes, loops, _, _ in SOLVES.values():   # the fixture's earlier draws
+        _chain(rng, PgoConfig(**dict(BASE_PGO, max_nodes=nmax, max_loop_edges=lmax)), nodes,
+               loops)
+    arrays, n = _chain(rng, PgoConfig(**fields), 40, [(0, 16), (16, 32)])
+    for _ in range(int(sys.argv[1]) if len(sys.argv) > 1 else 3):
+        t_bucket, t_full = launch(torch_parallel_ranks.bucket_cost, 4, arrays, fields, n,
+                                  threads=1)
+        print(f"bucket {t_bucket:.4f} s, full {t_full:.4f} s, ratio {t_bucket / t_full:.3f}",
+              flush=True)
