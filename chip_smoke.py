@@ -33,7 +33,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
      err <= 2e-5, the same best row and shift in every slot): 16 queries
      against the 400-live bank and against the all-live bank, 16 queries
      each against its own 10 ring-key candidates (a (16, 10, 20, 60) bank,
-     as ring-key mode makes), and T = 1, bit-equal to K2;
+     as ring-key mode makes), and T = 1, bit-equal to K2; then 16 queries
+     on one shared bank (all 4096 rows live, its first 400 and 30 rows) at
+     the host's query slots a block, every slot bit-equal to K2 for that
+     query;
   9. K3-T (one launch for T ICP problems) against its plain version: 16
      slots at (1024, 8192) with masks that differ per slot, every target
      tied across the chunks, and with its slot mask: half the slots masked
@@ -64,10 +67,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      design's (every slot and pair at 0.07130 ms a launch, PERF.md), and
      the valid pairs' bound and instruction floor;
  12. K1 x B (one launch for B scans) against its plain version, exactly
-     (the same peak positions and values in every scan): B = 1, bit-equal
-     to K1; B = 3; B = 64 full-size scans (the 60 of the SLAM paths and 4
-     of the odometry path), one of them through the 4-bit wire format and
-     one all zero (no peak), each scan bit-equal to K1 on that scan;
+     (the same peak positions and values in every scan), in the design the
+     host picks for B (resident below cen_peaks.STREAM_MIN_SCANS, streamed
+     from there): B = 1, bit-equal to K1; B = 2, 3, 5 (with a scan through
+     the 4-bit wire format and an all-zero one), 33; B = 64 full-size scans
+     (the 60 of the SLAM paths and 4 of the odometry path), one of them
+     through the 4-bit wire format and one all zero (no peak), each scan
+     bit-equal to K1 on that scan;
  13. the batched odometry path: make_batched_odometry_step at the default
      config, B = 64 streams over 8 steps, stream b stepping through scans
      o_b .. o_b + 8 of the odometry path's 24 (o_b = b % 16), seeded by the
@@ -132,7 +138,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      mesh engine streamed over the 60 SLAM scans at SlamConfig() (every
      counter reset just before and read just after; the streamed run's
      loops within the band, positions within 0.1 m, ATE < 1 % of the
-     path).  Prints each rank's K2-T device ms, the collectives' ms, the
+     path).  Prints each rank's K2-T device ms (and the earlier design's, one
+     query slot a block), the collectives' ms, the
      solve's ms, the engine's ms per scan and the bank bytes per rank;
  16. times: K2 (on the all-live bank), K3, K2-T, K3-T (16 slots) and K1 x B
      (B = 64) against their plain versions, the per-scan SlamEngine.process
@@ -148,15 +155,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
      K2's report is at the 4096-row all-live bank; lines before it give
      K2's device ms and bound at the SLAM run's largest prefix (30 rows)
      and at the 400-live bank, K2-T's at 16 x 400 rows, and K3-T's with
-     half the slots masked off.  K3 and K3-T print an instruction floor
+     half the slots masked off; then K1 x B at B = 1, 8, 32 and 64 and K2-T
+     on a shared bank of 30, 400 and 4096 rows, each in this run's design
+     and in the earlier one (the resident K1 x B; K2-T with one query slot
+     a block), with bound and share.  K3 and K3-T print an instruction floor
      beside the bound (their 5 operations a pair are separate FSUB / FMUL
      / FADD, issued at half the FMA-counted peak), and K3-T the earlier
-     design's time.  K2-T's report
+     design's time, as K2-T and K1 x B do (EARLIER_K2T_MS, EARLIER_K1B_MS).
+     K2-T's report
      is at 16 queries x the 30-row prefix, K3-T's at 16 x (1024, 8192)
      with every slot computed,
      K1 x B's at the 64 scans of phase 12.  Last, one RadarOdometry step
      and one batched step under torch.profiler: wall ms, device kernels,
-     and the device's busy ms and share.
+     the device's busy ms and share, and the step's one K1 (K1 x B)
+     kernel as the trace holds it, as a share of the busy time and of the
+     wall, beside its device ms above (or that the trace holds none).
 
 The line before the last is the kernel report
 {"kernels": [{"name", "route", "source", "replaces", "launches",
@@ -230,6 +243,9 @@ CLI_SCANS_B = 20     # the second session, from the circuit's first pose
 #: the CLI run's ATE bound, a share of the path (PERF.md §2's full-SLAM rule)
 CLI_ATE_BOUND_FRAC = 0.01
 DEVICE_LAUNCHES = 200  # back-to-back launches per device-time reading
+#: marker kernels (torch.cuda._sleep's spin_kernel) each profiled session
+#: launches before the call it profiles (device_busy)
+PROFILE_MARKERS = 1000
 #: the earlier design's numbers that this run's are printed beside (PERF.md,
 #: NVIDIA H100 80GB HBM3, 700.00 W): one CG matvec of the pose graph as a
 #: double vjp (kernels, ms), the per-scan run's two full solves (s, two
@@ -238,6 +254,14 @@ DEVICE_LAUNCHES = 200  # back-to-back launches per device-time reading
 EARLIER_MATVEC = (1206, 17.719)
 EARLIER_FULL_SOLVES_S = (16.3, 23.2)
 EARLIER_K3T_MS = 0.07130
+#: K1 x B's resident design (every row of a scan resident, the scans in
+#: turn) at B = 64, and K2-T with one query slot a block at 16 x 30 rows, the
+#: device ms per launch before the streamed design and the query groups
+EARLIER_K1B_MS = 1.46242
+EARLIER_K2T_MS = 0.01061
+#: the batches and shared-bank sizes phase 17 times each of the two designs at
+K1B_REPORT_SIZES = (1, 8, 32, 64)
+K2T_REPORT_ROWS = (30, 400, 4096)
 #: the most device launches (kernels and other nodes) one CG matvec may take
 MATVEC_MAX_LAUNCHES = 100
 # NVIDIA H100 SXM data-sheet peaks (at 700 W): HBM3 bytes/s, fp32 FLOP/s
@@ -380,6 +404,20 @@ def check_k2t(label: str, queries: torch.Tensor, bank: torch.Tensor) -> float:
     return err
 
 
+def check_k2t_bits(label: str, queries: torch.Tensor, bank: torch.Tensor) -> None:
+    """K2-T on one shared bank, at the host's query slots a block: every slot
+    bit-equal to K2 for that query on the bank."""
+    got = sc_corr.sc_shift_distances_multi_cuda(queries, bank)
+    one = [sc_corr.sc_shift_distances_cuda(q, bank) for q in queries]
+    torch.cuda.synchronize()
+    n_diff = sum(not torch.equal(g, o) for g, o in zip(got, one))
+    qgroup = sc_corr.multi_geometry(queries.shape[0], bank.shape[0], False)[1]
+    print(f"  shared bank, {label}, {queries.shape[0]} x {bank.shape[0]} rows, {qgroup} slots "
+          f"a block: slots not bit-equal to K2 {n_diff}")
+    if n_diff:
+        raise AssertionError(f"K2-T differs from K2 in {n_diff} slots ({label})")
+
+
 def ringkey_banks(queries: torch.Tensor, bank: torch.Tensor, k: int) -> torch.Tensor:
     """Each query's k nearest bank rows by ring key, gathered: the
     (T, k, R, S) bank that ring-key mode hands K2-T."""
@@ -471,8 +509,8 @@ def kernels_per_call(name: str, launch) -> tuple:
     """The device work one wrapper call puts on its stream, read from a CUDA
     graph capture of the call: (kernel nodes, other nodes).  The capture
     records every kernel, copy and memset the call enqueues, whatever a
-    tracer sees (torch.profiler saw no device event in some one-call
-    profiles late in this script on an H100).  Raises when the capture is
+    tracer sees (late in this script torch.profiler loses the first device
+    events of a session: see device_busy).  Raises when the capture is
     empty or a CUDA query fails."""
     libcuda = ctypes.CDLL("libcuda.so.1")
 
@@ -503,24 +541,37 @@ def kernels_per_call(name: str, launch) -> tuple:
     return n_kernels, len(kinds) - n_kernels
 
 
-def device_busy(fn) -> tuple:
+def device_busy(fn, match: str = "") -> tuple:
     """One call of ``fn`` under torch.profiler (device activity only):
-    (wall ms, device kernel ms, device kernels); the kernel ms is None when
-    the profiler saw no device events.  The kernels run on one stream, so
-    their summed time is the time the device was busy."""
+    (wall ms, device kernel ms, device kernels, ms and count of the kernels
+    whose name holds ``match``, marker kernels the trace kept); the kernel ms
+    is None when the profiler saw no device events.  The kernels run on one
+    stream, so their summed time is the time the device was busy.  Late in
+    this script the trace loses the first device events of a session (the
+    step's first kernels, K1 or K1 x B among them), so the session first
+    launches PROFILE_MARKERS marker kernels, which the counts leave out."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_MARKERS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    markers = sum(e.count for e in events if "spin_kernel" in e.key)
+    events = [e for e in events if "spin_kernel" not in e.key]
     if not events:
-        return 1e3 * wall, None, 0
-    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-             for e in events)
-    return 1e3 * wall, 1e-3 * us, sum(e.count for e in events)
+        return 1e3 * wall, None, 0, 0.0, 0, markers
+
+    def us(e) -> float:
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    hits = [e for e in events if match and match in e.key]
+    return (1e3 * wall, 1e-3 * sum(us(e) for e in events), sum(e.count for e in events),
+            1e-3 * sum(us(e) for e in hits), sum(e.count for e in hits), markers)
 
 
 def timed(bucket: dict, name: str, fn):
@@ -593,13 +644,15 @@ def matvec_probe(label: str, g, cfg: SlamConfig, name_power: str) -> None:
     eager_ms = median_ms(lambda: matvec(b), TIMED_RUNS)
     # the linearization builds small tensors on the host, which a graph
     # capture refuses: its kernels are the profiler's count
-    lin_wall, lin_busy, lin_kernels = device_busy(lambda: pg_mod.linearize(gs, cfg.pgo))
+    lin_wall, lin_busy, lin_kernels, _, _, lin_markers = device_busy(
+        lambda: pg_mod.linearize(gs, cfg.pgo))
     print(f"  {label}: one CG matvec at the {nb}-node bucket ({int(g.num_nodes)} nodes, "
           f"{int(g.loop_valid.sum())} loops): {kernels} kernels + {other} other nodes (CUDA graph "
           f"capture), device {replay_ms:.5f} ms (events over {DEVICE_LAUNCHES} replays of the "
           f"capture), {eager_ms:.4f} ms a call eager (median of {TIMED_RUNS}); the earlier "
           f"double-vjp matvec {EARLIER_MATVEC[0]} kernels, {EARLIER_MATVEC[1]} ms; the "
-          f"linearization once per GN step: {lin_kernels} kernels (profiler), {lin_wall:.3f} "
+          f"linearization once per GN step: {lin_kernels} kernels (profiler; marker kernels "
+          f"kept {lin_markers} of {PROFILE_MARKERS}), {lin_wall:.3f} "
           f"ms wall, device busy " + ("not measured" if lin_busy is None else
                                      f"{lin_busy:.3f} ms") + f" [{name_power}]")
     if kernels + other >= MATVEC_MAX_LAUNCHES:
@@ -894,6 +947,7 @@ def check_k1b(label: str, x: torch.Tensor, cfg: SlamConfig) -> float:
     and values in every scan, and every scan bit-equal to K1 on that scan
     alone.  Returns the max abs error at common peaks (0)."""
     got = cen_peaks.cen2019_scores_batched_cuda(x, cfg.features, cfg.radar)
+    design = cen_peaks.design_for(x.shape[0])
     want = cen2019.cen2019_scores_batched(x, cfg.features, cfg.radar)
     one = [cen_peaks.cen2019_scores_cuda(s.contiguous(), cfg.features, cfg.radar) for s in x]
     torch.cuda.synchronize()
@@ -903,9 +957,9 @@ def check_k1b(label: str, x: torch.Tensor, cfg: SlamConfig) -> float:
     both = fg & fw
     err = float((got[both] - want[both]).abs().max())
     n_k1 = sum(not torch.equal(g, o) for g, o in zip(got, one))
-    print(f"  {label}, batch {tuple(x.shape)}: peaks {sum(per_scan)} (per scan {min(per_scan)}"
-          f" to {max(per_scan)}), positions differing {n_diff}, max abs err {err:.3g}, scans "
-          f"not bit-equal to K1 {n_k1}")
+    print(f"  {label}, batch {tuple(x.shape)}, {design} design: peaks {sum(per_scan)} (per "
+          f"scan {min(per_scan)} to {max(per_scan)}), positions differing {n_diff}, max abs err "
+          f"{err:.3g}, scans not bit-equal to K1 {n_k1}")
     if sum(per_scan) == 0 or n_diff or err or n_k1:
         raise AssertionError(f"K1 x B differs ({label}): {n_diff} peak positions, values by "
                              f"{err}, {n_k1} scans from K1")
@@ -1505,7 +1559,10 @@ def mesh_rank(mesh, work: str) -> dict:
             if r == mesh.rank:
                 search[(rows, "k2t_ms")] = (
                     device_ms(lambda: sc_corr.sc_shift_distances_multi_cuda(queries, local)),
-                    device_ms(lambda: sc_corr.sc_shift_distances_multi_cuda(queries[:1], local)))
+                    device_ms(lambda: sc_corr.sc_shift_distances_multi_cuda(queries[:1], local)),
+                    # the earlier design: one query slot a block
+                    device_ms(lambda: sc_corr._launch_multi(queries, local, 1)),
+                    sc_corr.multi_geometry(SLOTS, local.shape[0], False)[1])
         mesh.barrier()
         search[(rows, "bank_bytes")] = local.numel() * local.element_size()
     out["search"] = search
@@ -1724,9 +1781,10 @@ def mesh_phase(cfg: SlamConfig, sim: RadarSimulator, live_bank: torch.Tensor,
             k2t = [r["search"][(rows, "k2t_ms")] for r in ranks]
             nbytes = [r["search"][(rows, "bank_bytes")] for r in ranks]
             print(f"  K2-T device ms per launch, each rank's {rows}-row block: 16 queries "
-                  f"{', '.join('%.5f' % x[0] for x in k2t)}; one query "
-                  f"{', '.join('%.5f' % x[1] for x in k2t)}; bank bytes per rank {nbytes} "
-                  f"[{name_power}]")
+                  f"{', '.join('%.5f' % x[0] for x in k2t)} ({k2t[0][3]} slots a block; the "
+                  f"earlier design, one slot a block: {', '.join('%.5f' % x[2] for x in k2t)});"
+                  f" one query {', '.join('%.5f' % x[1] for x in k2t)}; bank bytes per rank "
+                  f"{nbytes} [{name_power}]")
         search_k2t = sum(r["search_launches"]["sc_corr_multi"] for r in ranks)
         print(f"  the searches launched K2-T {[r['search_launches']['sc_corr_multi'] for r in ranks]}"
               f" times on the ranks")
@@ -1998,6 +2056,9 @@ def main() -> None:
     print(f"  T = 1 against K2 on the all-live bank: bit-equal {bool(torch.equal(one, single))}")
     if not torch.equal(one, single):
         raise AssertionError("K2-T with one slot is not bit-equal to K2")
+    for label, b in (("all live", live_bank), ("400 rows", live_bank[:400]),
+                     ("30-row prefix", prefix)):
+        check_k2t_bits(label, queries, b)
 
     # 9. K3-T against its plain version: 16 slots at (1024, 8192)
     src_t = torch.as_tensor(rng.uniform(-150, 150, (SLOTS, 1024, 2)), dtype=torch.float32,
@@ -2049,7 +2110,11 @@ def main() -> None:
     batch[2] = 0.0
     k1b_err = max(
         check_k1b("B = 1", x[None].contiguous(), cfg),
+        check_k1b("B = 2", batch[3:5].contiguous(), cfg),
         check_k1b("B = 3", batch[3:6].contiguous(), cfg),
+        check_k1b("B = 5, scan 1 through the 4-bit wire format, scan 2 all zero",
+                  batch[:5].contiguous(), cfg),
+        check_k1b("B = 33", batch[7:40].contiguous(), cfg),
         check_k1b("B = 64, scan 1 through the 4-bit wire format, scan 2 all zero", batch, cfg),
     )
 
@@ -2140,6 +2205,30 @@ def main() -> None:
         print(f"sc_shift_distances_multi {tuple(queries.shape)} x {tuple(b.shape)} ({label}): "
               f"device {dev_ms:.5f} ms per launch, bound {1e3 * b_ms:.3f} us by {b_by}, "
               f"share {b_ms / dev_ms:.4f} [{name_power}]")
+    # K1 x B and K2-T in this run's design against the earlier one (the
+    # resident K1 x B; K2-T with one query slot a block), in turns
+    for b in K1B_REPORT_SIZES:
+        xb = batch[:b].contiguous()
+        b_ms, b_by = bound(b * 8 * na * nbp, b * na * nbp * (2 * ntaps + 17))
+        new_ms = device_ms(lambda: cen_peaks.cen2019_scores_batched_cuda(xb, fc, cfg.radar))
+        old_ms = device_ms(lambda: cen_peaks._launch(xb, fc, cfg.radar, "k1b", "resident"))
+        print(f"cen2019_scores_batched at B = {b} ({cen_peaks.design_for(b)} design): device "
+              f"{new_ms:.5f} ms per launch, bound {1e3 * b_ms:.3f} us by {b_by}, share "
+              f"{b_ms / new_ms:.4f}; the earlier design (resident) {old_ms:.5f} ms, share "
+              f"{b_ms / old_ms:.4f}" + (f"; {EARLIER_K1B_MS} ms before this design (PERF.md)"
+                                         if b == STREAMS else "") + f" [{name_power}]")
+    for n in K2T_REPORT_ROWS:
+        b = live_bank[:n]
+        b_ms, b_by = bound(*k2t_work(queries, b))
+        qgroup = sc_corr.multi_geometry(SLOTS, n, False)[1]
+        new_ms = device_ms(lambda: sc_corr.sc_shift_distances_multi_cuda(queries, b))
+        old_ms = device_ms(lambda: sc_corr._launch_multi(queries, b, 1))
+        print(f"sc_shift_distances_multi {tuple(queries.shape)} x {tuple(b.shape)} (shared bank, "
+              f"{qgroup} slots a block): device {new_ms:.5f} ms per launch, bound "
+              f"{1e3 * b_ms:.3f} us by {b_by}, share {b_ms / new_ms:.4f}; the earlier design "
+              f"(one slot a block) {old_ms:.5f} ms, share {b_ms / old_ms:.4f}"
+              + (f"; {EARLIER_K2T_MS} ms before the query groups (PERF.md)" if n == 30 else "")
+              + f" [{name_power}]")
     n_valid_t = int(tv_t.sum())
     k3t_half_ms = device_ms(lambda: nn_dist.nearest_neighbors_multi_cuda(src_t, tgt_t, tv_t,
                                                                          half_slots))
@@ -2209,8 +2298,10 @@ def main() -> None:
         # issue at half the FMA-counted peak: the floor beside the bound
         floor = (f", instruction floor {2e3 * b_ms:.3f} us"
                  if counter in ("nn_dist", "nn_dist_multi") else "")
-        if counter == "nn_dist_multi":
-            floor += f", the earlier design {EARLIER_K3T_MS} ms ({dev_ms / EARLIER_K3T_MS:.4f} of it)"
+        earlier = {"nn_dist_multi": EARLIER_K3T_MS, "sc_corr_multi": EARLIER_K2T_MS,
+                   "cen_peaks_batched": EARLIER_K1B_MS}.get(counter)
+        if earlier is not None:
+            floor += f", the earlier design {earlier} ms ({dev_ms / earlier:.4f} of it)"
         print(f"{name}: device {dev_ms:.5f} ms per launch (CUDA events over "
               f"{DEVICE_LAUNCHES} back-to-back launches), bound {1e3 * b_ms:.3f} us by "
               f"{b_by}{floor} ({n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.2f} Mop), share "
@@ -2237,16 +2328,31 @@ def main() -> None:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
 
-    # one odometry step of each path under the profiler
+    # one odometry step of each path under the profiler: the K1 (K1 x B)
+    # kernel's device ms in the trace as a share of the busy time, and its
+    # device ms from the readings above beside it
     one = RadarOdometry(cfg, device=dev)
     one.process(scans[0])
-    for label, fn in (("one RadarOdometry.process (scan 1 after scan 0)",
-                       lambda: one.process(scans[1])),
-                      (f"one batched step (B = {STREAMS})", batched_step)):
-        wall, busy, n_kernels = device_busy(fn)
+    k1_dev = {r["name"]: r["device_ms"] for r in report}
+    for label, fn, k1_name in (("one RadarOdometry.process (scan 1 after scan 0)",
+                                lambda: one.process(scans[1]), "cen2019_scores"),
+                               (f"one batched step (B = {STREAMS})", batched_step,
+                                "cen2019_scores_batched")):
+        wall, busy, n_kernels, k1_trace, n_k1, markers = device_busy(fn, "cen2019_")
+        k1 = k1_dev[k1_name]
+        if busy is None:
+            seen = "not measured (no device events)"
+        elif n_k1:
+            seen = (f"{busy:.3f} ms, share {busy / wall:.4f}; its {k1_name} kernel in the trace "
+                    f"{k1_trace:.5f} ms ({n_k1} launch): {k1_trace / busy:.4f} of the busy "
+                    f"time, {k1_trace / wall:.4f} of the wall; {k1:.5f} ms by CUDA events")
+        else:
+            seen = (f"{busy:.3f} ms, share {busy / wall:.4f}; the trace holds no {k1_name} "
+                    f"kernel, so the busy time and kernel count leave it out ({k1:.5f} ms by "
+                    f"CUDA events)")
         print(f"{label} under torch.profiler: {wall:.3f} ms wall, device kernels {n_kernels}, "
-              "busy " + (f"{busy:.3f} ms, share {busy / wall:.4f}" if busy is not None else
-                         "not measured (no device events)") + f" [{name_power}]")
+              f"busy {seen}; marker kernels the trace kept {markers} of {PROFILE_MARKERS} "
+              f"[{name_power}]")
 
     if "jax" in sys.modules or any(m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")

@@ -66,7 +66,9 @@
 // Every sum is taken in a fixed order, so two runs give the same matrix.
 // ptxas (-Xptxas -v, which chip_smoke.py prints): 56 registers for each of
 // the two instantiations (55 and 56 before the slot offsets), no spills,
-// no stack.
+// no stack; the bound of three blocks an SM keeps the tile variant there
+// (it took 64, and 0.6 % longer at 4096 rows, once the phases below became
+// functions the shared-bank kernel also calls).
 //
 // Measured on an H100 (chip_smoke.py, PERF.md): 4096 rows take about 26 us,
 // a third of the way to the bound, the contraction sharing the time with
@@ -90,11 +92,32 @@
 // SM in one wave, so the launch should cost about one K2 block's chain of
 // phases, ~9 us, for all 16 queries.  Each block still stages its bank rows
 // and normalises them for its own slot: the T blocks of one row block read
-// the same rows (from L2 after the first).  Sharing each staged row across
-// the T queries, a wider right-hand side of the register tile, is the next
-// lever (PERF.md section 7).  ptxas: as above, the one kernel serves both.
-// Measured (chip_smoke.py, PERF.md): about 10.7 us at 16 x 30 rows, a
-// K2 launch's time for all 16 queries.
+// the same rows (from L2 after the first).  ptxas: as above, the one kernel
+// serves both.  Measured (chip_smoke.py, PERF.md): about 10.7 us at 16 x 30
+// rows, a K2 launch's time for all 16 queries.
+//
+// K2-T with one shared bank of 2048 rows or more (the tile variant) stages
+// and normalises each row block once for a group of query slots
+// (sc_corr_shared_kernel): grid axis y holds the query groups, and a block
+// runs its slots in turn against the rows it holds, each with K2's thread
+// layout, register tile and order of sums (normalise the query, contract,
+// add the splits' partials, count), so slot t's output is K2's for query t,
+// bit for bit; the split variant's N (under 2048) fixes K2's order too, so
+// the host keeps the variant K2 would take for N.  The host picks the slots
+// a block (ops/kernels/sc_corr.py::multi_geometry): as many as keep 256
+// blocks in the launch, two a tile SM, i.e. 8 at 2048 rows and 16 at 4096
+// and 8192; one (the kernel above) for per-slot banks and under 2048 rows,
+// where a split block stages only 2 rows and a longer chain of queries
+// costs more than the staging it saves.  Measured on an H100 (PERF.md),
+// 16 queries, device ms with 1 / 2 / 4 / 8 / 16 slots a block, this
+// source's build: 30 rows 0.0106 / 0.0137 / 0.0233 / 0.0430 / 0.0819; 400
+// rows 0.0645 / 0.0696 / 0.0685 / 0.0735 / 0.0969; 2048 rows 0.1822 /
+// 0.1607 / 0.1498 / 0.1442 / 0.1889; 4096 rows 0.3591 / 0.3163 / 0.2961 /
+// 0.2863 / 0.2800 (bound 0.141 ms by operations: share 0.50); 8192 rows
+// 0.7109 / 0.6218 / 0.5880 / 0.5721 / 0.5621.  What is left: each slot
+// still pays the query's normalisation and the block's barriers and
+// distance phase in turn (how the time splits is not measured).  ptxas:
+// the shared kernel 72 registers, no spills, no stack.
 
 #include <cuda_runtime.h>
 
@@ -185,37 +208,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <int kRows, int kSplits>
-__global__ void __launch_bounds__(kMaxThreads, 2)
-sc_corr_kernel(const float* __restrict__ query, const float* __restrict__ bank,
-               float* __restrict__ out, int n, int nr, int ns, size_t bank_slot_stride,
-               bool vec) {
-  static_assert(kRows * kSplits % 4 == 0, "step 2 needs whole quads of lanes");
-  extern __shared__ __align__(16) float smem[];
-  const Layout L = layout(kRows, kSplits, nr, ns);
-  const int sp = L.sp, zpad = L.zpad, w = L.w, stride = L.stride;
-  float* bs = smem;
-  float* qd = smem + L.qd;
-  float* part = smem + L.part;
-  unsigned char* qflag = reinterpret_cast<unsigned char*>(smem + L.flags);
-  unsigned char* bflag = qflag + kMaxSectors;   // row i at bflag + i * 64
-  unsigned long long* masks = reinterpret_cast<unsigned long long*>(smem + L.masks);
-
-  // slot blockIdx.y: its query, its bank (the shared one at a stride of 0)
-  // and its output block; slot 0 reads and writes what a single query does
-  const size_t slot = blockIdx.y;
-  query += slot * nr * ns;
-  bank += slot * bank_slot_stride;
-  out += slot * n * ns;
-
-  const int nthreads = blockDim.x;   // (zpad / 12) * kRows * kSplits
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * kRows;
-  const int rows_here = min(kRows, n - row0);
+// 1. kRows bank rows from row0 into shared memory (rows past N as zeros);
+//    with S % 4 == 0, Sp == S and a staged row is the row as it lies
+template <int kRows>
+__device__ __forceinline__ void stage_rows(const float* __restrict__ bank, float* bs, int row0,
+                                           int rows_here, int nr, int ns, int sp, int stride,
+                                           bool vec, int tid, int nthreads) {
   const int cells = nr * ns;
-
-  // 1. this block's bank rows into shared memory (rows past N as zeros);
-  //    with S % 4 == 0, Sp == S and a staged row is the row as it lies
   if (vec) {
     for (int i = 0; i < kRows; ++i) {
       float* dst = bs + i * stride;
@@ -235,41 +234,47 @@ sc_corr_kernel(const float* __restrict__ query, const float* __restrict__ bank,
           bs[i * stride + r * sp + c] = (i < rows_here && c < ns) ? src[r * ns + c] : 0.f;
     }
   }
-  // 2. while the copies fly, the doubled normalised query
-  //    qd[r][j] = qn[r][j mod S], j < W, and its flags, a quad of lanes to a
-  //    column: lane h reads rings h, h + 4, ... into registers and sums
-  //    their squares, two xor shuffles add the quad's 4 sums in a fixed
-  //    order (each lane gets the same total), and each lane writes its own
-  //    rings (nthreads % 4 == 0, so a quad is always whole)
-  {
-    const int h = tid & 3;
-    const unsigned quad = 0xfu << (tid & 28);
-    for (int c = ns + tid; c < kMaxSectors; c += nthreads) qflag[c] = 0;
-    for (int p = tid; p < 4 * w; p += nthreads) {
-      const int j = p >> 2;
-      int c = j;
-      while (c >= ns) c -= ns;
-      float s = 0.f;
-      for (int r0 = h; r0 < nr; r0 += 4 * kQuadLoads) {
-        float v[kQuadLoads];   // loaded together, so their latencies overlap
-#pragma unroll
-        for (int u = 0; u < kQuadLoads; ++u)
-          v[u] = r0 + 4 * u < nr ? query[(r0 + 4 * u) * ns + c] : 0.f;
-#pragma unroll
-        for (int u = 0; u < kQuadLoads; ++u) s = fmaf(v[u], v[u], s);
-      }
-      s += __shfl_xor_sync(quad, s, 1);
-      s += __shfl_xor_sync(quad, s, 2);
-      const float norm = sqrtf(s);
-      const float inv = recip_norm(norm);
-      for (int r = h; r < nr; r += 4) qd[r * w + j] = query[r * ns + c] * inv;
-      if (h == 0 && j < ns) qflag[j] = norm > 1e-9f;
-    }
-  }
-  cp_async_wait_all();
-  __syncthreads();
+}
 
-  // 3. the bank rows normalised in place, one thread per (row, 4 columns)
+// 2. the doubled normalised query qd[r][j] = qn[r][j mod S], j < W, and its
+//    flags, a quad of lanes to a column: lane h reads rings h, h + 4, ...
+//    into registers and sums their squares, two xor shuffles add the quad's
+//    4 sums in a fixed order (each lane gets the same total), and each lane
+//    writes its own rings (nthreads % 4 == 0, so a quad is always whole)
+__device__ __forceinline__ void normalize_query(const float* __restrict__ query, float* qd,
+                                                unsigned char* qflag, int nr, int ns, int w,
+                                                int tid, int nthreads) {
+  const int h = tid & 3;
+  const unsigned quad = 0xfu << (tid & 28);
+  for (int c = ns + tid; c < kMaxSectors; c += nthreads) qflag[c] = 0;
+  for (int p = tid; p < 4 * w; p += nthreads) {
+    const int j = p >> 2;
+    int c = j;
+    while (c >= ns) c -= ns;
+    float s = 0.f;
+    for (int r0 = h; r0 < nr; r0 += 4 * kQuadLoads) {
+      float v[kQuadLoads];   // loaded together, so their latencies overlap
+#pragma unroll
+      for (int u = 0; u < kQuadLoads; ++u)
+        v[u] = r0 + 4 * u < nr ? query[(r0 + 4 * u) * ns + c] : 0.f;
+#pragma unroll
+      for (int u = 0; u < kQuadLoads; ++u) s = fmaf(v[u], v[u], s);
+    }
+    s += __shfl_xor_sync(quad, s, 1);
+    s += __shfl_xor_sync(quad, s, 2);
+    const float norm = sqrtf(s);
+    const float inv = recip_norm(norm);
+    for (int r = h; r < nr; r += 4) qd[r * w + j] = query[r * ns + c] * inv;
+    if (h == 0 && j < ns) qflag[j] = norm > 1e-9f;
+  }
+}
+
+// 3. the bank rows normalised in place, one thread per (row, 4 columns),
+//    and their flag bytes
+template <int kRows>
+__device__ __forceinline__ void normalize_rows(float* bs, unsigned char* bflag, int rows_here,
+                                               int nr, int sp, int stride, int tid,
+                                               int nthreads) {
   constexpr int kGroups = kMaxSectors / 4;
   for (int p = tid; p < kRows * kGroups; p += nthreads) {
     const int i = p / kGroups, c = 4 * (p % kGroups);   // powers of two
@@ -295,20 +300,17 @@ sc_corr_kernel(const float* __restrict__ query, const float* __restrict__ bank,
         (nrm.x > 1e-9f ? 1u : 0u) | (nrm.y > 1e-9f ? 1u << 8 : 0u) |
         (nrm.z > 1e-9f ? 1u << 16 : 0u) | (nrm.w > 1e-9f ? 1u << 24 : 0u);
   }
-  __syncthreads();
-  // the query's and each row's 64-bit column mask, read after step 5's barrier
-  for (int t = tid; t <= kRows; t += nthreads) masks[t] = pack_flags(qflag + t * kMaxSectors);
+}
 
-  // 4. the register tile: bank row i, shifts z0 .. z0 + 11, rings r = split,
-  //    split + kSplits, ...; each step loads the query float4 that the next
-  //    step needs before its own FMAs (the last such load reads qd's column
-  //    zpad + sp + 3 at most, inside the row)
-  const int nzg = zpad / kShifts;
-  const int zg = tid % nzg;          // one division per thread
-  const int grp = tid / nzg;
-  const int i = grp % kRows;
-  const int split = grp / kRows;
-  const int z0 = zg * kShifts;
+// 4. the register tile: bank row i, shifts z0 .. z0 + 11, rings r = split,
+//    split + kSplits, ...; each step loads the query float4 that the next
+//    step needs before its own FMAs (the last such load reads qd's column
+//    zpad + sp + 3 at most, inside the row).  5. every group's partial sums
+//    into shared memory.
+template <int kRows, int kSplits>
+__device__ __forceinline__ void contract(const float* qd, const float* bs, float* part, int i,
+                                         int split, int z0, int nr, int sp, int w, int stride,
+                                         int zpad) {
   float acc[kShifts];
 #pragma unroll
   for (int k = 0; k < kShifts; ++k) acc[k] = 0.f;
@@ -348,21 +350,20 @@ sc_corr_kernel(const float* __restrict__ query, const float* __restrict__ bank,
       }
     }
   }
-
-  // 5. every group's partial sums into shared memory
 #pragma unroll
   for (int k = 0; k < kShifts; ++k) part[(split * kRows + i) * zpad + z0 + k] = acc[k];
-  __syncthreads();
-  if (i >= rows_here) return;
+}
 
-  // 6. the distances: thread (split, i, zg) finishes shifts z0 + k for
-  //    k = split, split + kSplits, ..., adding the groups' partial sums in
-  //    group order and counting by popcount.  The loops stay rolled: code
-  //    that runs once per block costs more in instruction fetches than in
-  //    work.
-  const unsigned long long qm = masks[0], bm = masks[1 + i];
+// 6. the distances: thread (split, i, zg) finishes shifts z0 + k for
+//    k = split, split + kSplits, ..., adding the groups' partial sums in
+//    group order and counting by popcount.  The loops stay rolled: code
+//    that runs once per block costs more in instruction fetches than in
+//    work.
+template <int kRows, int kSplits>
+__device__ __forceinline__ void distances(const float* part, unsigned long long qm,
+                                          unsigned long long bm, float* o, int i, int split,
+                                          int z0, int ns, int zpad) {
   const unsigned long long full = ns == 64 ? ~0ull : (1ull << ns) - 1ull;
-  float* o = out + static_cast<size_t>(row0 + i) * ns;
 #pragma unroll 1
   for (int k = split; k < kShifts; k += kSplits) {
     const int z = z0 + k;
@@ -376,18 +377,133 @@ sc_corr_kernel(const float* __restrict__ query, const float* __restrict__ bank,
   }
 }
 
+// One query slot a block (K2, and K2-T with per-slot banks): slot blockIdx.y
+// offsets its query, bank (the shared one at a stride of 0) and output
+// block; slot 0 reads and writes what a single query does.
 template <int kRows, int kSplits>
-int launch(const float* query, const float* bank, float* out, int slots, int n, int nr,
-           int ns, size_t bank_slot_stride, cudaStream_t stream) {
-  constexpr int kDevices = 64;
-  static int attr_bytes[kDevices] = {};   // the opt-in already set, per device
+__global__ void __launch_bounds__(kMaxThreads, 3)
+sc_corr_kernel(const float* __restrict__ query, const float* __restrict__ bank,
+               float* __restrict__ out, int n, int nr, int ns, size_t bank_slot_stride,
+               bool vec) {
+  static_assert(kRows * kSplits % 4 == 0, "step 2 needs whole quads of lanes");
+  extern __shared__ __align__(16) float smem[];
   const Layout L = layout(kRows, kSplits, nr, ns);
-  auto kernel = sc_corr_kernel<kRows, kSplits>;
+  const int sp = L.sp, zpad = L.zpad, w = L.w, stride = L.stride;
+  float* bs = smem;
+  float* qd = smem + L.qd;
+  float* part = smem + L.part;
+  unsigned char* qflag = reinterpret_cast<unsigned char*>(smem + L.flags);
+  unsigned char* bflag = qflag + kMaxSectors;   // row i at bflag + i * 64
+  unsigned long long* masks = reinterpret_cast<unsigned long long*>(smem + L.masks);
+
+  const size_t slot = blockIdx.y;
+  query += slot * nr * ns;
+  bank += slot * bank_slot_stride;
+  out += slot * n * ns;
+
+  const int nthreads = blockDim.x;   // (zpad / 12) * kRows * kSplits
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * kRows;
+  const int rows_here = min(kRows, n - row0);
+
+  stage_rows<kRows>(bank, bs, row0, rows_here, nr, ns, sp, stride, vec, tid, nthreads);
+  // while the copies fly, the query
+  normalize_query(query, qd, qflag, nr, ns, w, tid, nthreads);
+  cp_async_wait_all();
+  __syncthreads();
+  normalize_rows<kRows>(bs, bflag, rows_here, nr, sp, stride, tid, nthreads);
+  __syncthreads();
+  // the query's and each row's 64-bit column mask, read after step 5's barrier
+  for (int t = tid; t <= kRows; t += nthreads) masks[t] = pack_flags(qflag + t * kMaxSectors);
+
+  const int nzg = zpad / kShifts;
+  const int zg = tid % nzg;          // one division per thread
+  const int grp = tid / nzg;
+  const int i = grp % kRows;
+  const int split = grp / kRows;
+  const int z0 = zg * kShifts;
+  contract<kRows, kSplits>(qd, bs, part, i, split, z0, nr, sp, w, stride, zpad);
+  __syncthreads();
+  if (i >= rows_here) return;
+  distances<kRows, kSplits>(part, masks[0], masks[1 + i],
+                            out + static_cast<size_t>(row0 + i) * ns, i, split, z0, ns, zpad);
+}
+
+// K2-T with one shared bank: a block stages and normalises its kRows bank
+// rows once and runs the query slots blockIdx.y * qgroup .. + qgroup - 1
+// against them in turn, each with K2's block (the same thread layout,
+// register tile and order of sums), so slot t's output is K2's for query t.
+template <int kRows, int kSplits>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+sc_corr_shared_kernel(const float* __restrict__ queries, const float* __restrict__ bank,
+                      float* __restrict__ out, int slots, int qgroup, int n, int nr, int ns,
+                      bool vec) {
+  static_assert(kRows * kSplits % 4 == 0, "step 2 needs whole quads of lanes");
+  extern __shared__ __align__(16) float smem[];
+  const Layout L = layout(kRows, kSplits, nr, ns);
+  const int sp = L.sp, zpad = L.zpad, w = L.w, stride = L.stride;
+  float* bs = smem;
+  float* qd = smem + L.qd;
+  float* part = smem + L.part;
+  unsigned char* qflag = reinterpret_cast<unsigned char*>(smem + L.flags);
+  unsigned char* bflag = qflag + kMaxSectors;
+  unsigned long long* masks = reinterpret_cast<unsigned long long*>(smem + L.masks);
+
+  const int nthreads = blockDim.x;
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * kRows;
+  const int rows_here = min(kRows, n - row0);
+  const int q0 = blockIdx.y * qgroup;
+  const int q1 = min(q0 + qgroup, slots);
+
+  stage_rows<kRows>(bank, bs, row0, rows_here, nr, ns, sp, stride, vec, tid, nthreads);
+  normalize_query(queries + static_cast<size_t>(q0) * nr * ns, qd, qflag, nr, ns, w, tid,
+                  nthreads);
+  cp_async_wait_all();
+  __syncthreads();
+  normalize_rows<kRows>(bs, bflag, rows_here, nr, sp, stride, tid, nthreads);
+  __syncthreads();
+  for (int t = tid; t <= kRows; t += nthreads) masks[t] = pack_flags(qflag + t * kMaxSectors);
+
+  const int nzg = zpad / kShifts;
+  const int zg = tid % nzg;
+  const int grp = tid / nzg;
+  const int i = grp % kRows;
+  const int split = grp / kRows;
+  const int z0 = zg * kShifts;
+  for (int q = q0; q < q1; ++q) {
+    if (q > q0) {
+      // the previous slot is done with qd, qflag, part and the query mask
+      __syncthreads();
+      normalize_query(queries + static_cast<size_t>(q) * nr * ns, qd, qflag, nr, ns, w, tid,
+                      nthreads);
+      __syncthreads();
+      if (tid == 0) masks[0] = pack_flags(qflag);
+    }
+    contract<kRows, kSplits>(qd, bs, part, i, split, z0, nr, sp, w, stride, zpad);
+    __syncthreads();
+    if (i < rows_here)
+      distances<kRows, kSplits>(part, masks[0], masks[1 + i],
+                                out + (static_cast<size_t>(q) * n + row0 + i) * ns, i, split,
+                                z0, ns, zpad);
+  }
+}
+
+template <int kRows, int kSplits>
+int launch(const float* query, const float* bank, float* out, int slots, int qgroup, int n,
+           int nr, int ns, size_t bank_slot_stride, cudaStream_t stream) {
+  constexpr int kDevices = 64;
+  // the opt-in already set, per device, for each of the two kernels
+  static int attr_bytes[2][kDevices] = {};
+  const Layout L = layout(kRows, kSplits, nr, ns);
+  const bool shared = qgroup > 1;
+  const void* kernel = shared ? reinterpret_cast<const void*>(sc_corr_shared_kernel<kRows, kSplits>)
+                              : reinterpret_cast<const void*>(sc_corr_kernel<kRows, kSplits>);
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (dev >= kDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (L.bytes > attr_bytes[dev]) {
+  if (L.bytes > attr_bytes[shared][dev]) {
     // the opt-in above 48 KB, and all of the SM's shared memory as such, so
     // that two tile blocks fit on an SM
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
@@ -395,29 +511,36 @@ int launch(const float* query, const float* bank, float* out, int slots, int n, 
       e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return static_cast<int>(e);
-    attr_bytes[dev] = L.bytes;
+    attr_bytes[shared][dev] = L.bytes;
   }
   const bool vec = ns % 4 == 0 && reinterpret_cast<uintptr_t>(bank) % 16 == 0 &&
                    bank_slot_stride % 4 == 0;
   const int threads = (L.zpad / kShifts) * kRows * kSplits;
-  const dim3 blocks((n + kRows - 1) / kRows, slots);
-  kernel<<<blocks, threads, L.bytes, stream>>>(query, bank, out, n, nr, ns, bank_slot_stride,
-                                               vec);
+  const int rows = (n + kRows - 1) / kRows;
+  if (shared)
+    sc_corr_shared_kernel<kRows, kSplits><<<dim3(rows, (slots + qgroup - 1) / qgroup), threads,
+                                            L.bytes, stream>>>(query, bank, out, slots, qgroup,
+                                                               n, nr, ns, vec);
+  else
+    sc_corr_kernel<kRows, kSplits><<<dim3(rows, slots), threads, L.bytes, stream>>>(
+        query, bank, out, n, nr, ns, bank_slot_stride, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_variant(const float* query, const float* bank, float* out, int slots, int n,
-                   int nr, int ns, long long bank_slot_stride, int variant, void* stream) {
+                   int nr, int ns, long long bank_slot_stride, int variant, int qgroup,
+                   void* stream) {
   if (n <= 0 || slots <= 0) return 0;
   if (nr < 1 || ns < 1 || ns > kMaxSectors || nr * ((ns + 3) & ~3) > kMaxCells ||
-      slots > kMaxSlots || bank_slot_stride < 0)
+      slots > kMaxSlots || bank_slot_stride < 0 || qgroup < 1 ||
+      (qgroup > 1 && bank_slot_stride != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t stride = static_cast<size_t>(bank_slot_stride);
   if (variant == 0)
-    return launch<kSplitRows, 20>(query, bank, out, slots, n, nr, ns, stride, st);
+    return launch<kSplitRows, 20>(query, bank, out, slots, qgroup, n, nr, ns, stride, st);
   if (variant == 1)
-    return launch<kTileRows, 4>(query, bank, out, slots, n, nr, ns, stride, st);
+    return launch<kTileRows, 4>(query, bank, out, slots, qgroup, n, nr, ns, stride, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -436,17 +559,20 @@ extern "C" int sc_corr_block_rows(int variant) {
 // Returns the CUDA error (0 = cudaSuccess) and leaves no error pending.
 extern "C" int sc_corr_launch(const float* query, const float* bank, float* out, int n,
                               int nr, int ns, int variant, void* stream) {
-  return launch_variant(query, bank, out, 1, n, nr, ns, 0, variant, stream);
+  return launch_variant(query, bank, out, 1, n, nr, ns, 0, variant, 1, stream);
 }
 
 // The T-slot form: queries (T, R, S), out (T, N, S), and the bank of slot t
 // at bank + t * bank_slot_stride floats: a stride of 0 shares one (N, R, S)
-// bank, N * R * S gives every slot its own ((T, N, R, S)).  One launch, the
-// slots on grid axis y; slot t's output is what sc_corr_launch gives for
-// query t and bank t, bit for bit.
+// bank, N * R * S gives every slot its own ((T, N, R, S)).  One launch.
+// qgroup = 1: the slots on grid axis y, each block one slot; qgroup > 1
+// (a shared bank only): each block runs qgroup slots against the rows it
+// staged, the query groups on grid axis y.  Either way slot t's output is
+// what sc_corr_launch gives for query t and bank t, bit for bit.
 extern "C" int sc_corr_multi_launch(const float* queries, const float* bank, float* out,
                                     int slots, int n, int nr, int ns,
-                                    long long bank_slot_stride, int variant, void* stream) {
+                                    long long bank_slot_stride, int variant, int qgroup,
+                                    void* stream) {
   return launch_variant(queries, bank, out, slots, n, nr, ns, bank_slot_stride, variant,
-                        stream);
+                        qgroup, stream);
 }

@@ -253,3 +253,100 @@ def test_cen2019_kernel_through_4bit_path_on_cuda(scan, cuda_device):
     x = decode_power(t(pack4(u8), cuda_device), packed=True)
     assert x.shape == scan.shape and x.dtype == torch.float32
     _assert_kernel_equals_twin(x)
+
+
+# K1 x B's two designs: the host's choices, and each scan of a batch bit for
+# bit K1's map of that scan on the card.
+
+
+@pytest.mark.parametrize("nscans", [1, 2, 5, 33, 64])
+def test_k1b_design_crossover(nscans):
+    """A batch below STREAM_MIN_SCANS takes the resident design (K1 is
+    B = 1), from there the streamed one."""
+    assert cen_peaks.STREAM_MIN_SCANS >= 2
+    want = "streamed" if nscans >= cen_peaks.STREAM_MIN_SCANS else "resident"
+    assert cen_peaks.design_for(nscans) == want
+    assert cen_peaks.design_for(1) == "resident"
+
+
+@pytest.mark.parametrize("nscans", [64, 5, 33])
+def test_k1b_stream_buffers(nscans):
+    """The streamed launch's scratch holds sm and |grad| for RING_SCANS scans
+    (a few, not B), its stats four floats and a flag a row and three counts
+    a scan; the ring is at least two scans, so no scan waits on its own
+    slot's previous scan in its own phase."""
+    scratch, stats = cen_peaks.stream_buffers(nscans, 400, 3456)
+    ring = cen_peaks.RING_SCANS
+    assert ring >= 2
+    assert scratch == 2 * ring * 400 * 3456
+    assert stats == nscans * (5 * 400 + 3)
+    if nscans > ring:
+        assert scratch < 2 * nscans * 400 * 3456
+
+
+def test_k1b_stream_smem_fits_many_blocks():
+    """A streamed block of 128 threads holds two rows: at 3456 bins 28.3 KB
+    with its 16-byte padding, so the shared memory of an H100 SM holds seven
+    such blocks and not eight; the rows are padded on both sides by the
+    smoothing radius rounded up to 4."""
+    got = cen_peaks.stream_smem_bytes(3456)
+    assert got == 4 * (8 + 3456 + 8 + 8 + 3456) + 4 * cen_peaks.STREAM_THREADS
+    assert cen_peaks.STREAM_THREADS * 2 == cen_peaks.THREADS
+    assert 7 * (got + H100[2]) <= H100[1] < 8 * (got + H100[2])
+    assert cen_peaks.stream_smem_bytes(3457) == got + 4 * 4 + 4
+    # 25 taps: a radius of 12, padded to 12 on each side (13 taps: 6, to 8)
+    assert cen_peaks.stream_smem_bytes(3456, 25) == got + 4 * 2 * 4
+
+
+@pytest.fixture(scope="module")
+def batch_scans():
+    """33 full-size scans of a circuit; scan 1 came over the 4-bit wire
+    format, scan 2 is all zero."""
+    sim = RadarSimulator(CFG.radar)
+    gt = sim.circuit_trajectory(33)
+    scans = np.stack([sim.render(gt[i], noise_seed=i) for i in range(33)])
+    u8 = (np.clip(scans[1], 0, 1) * 255).astype(np.uint8)
+    scans[1] = unpack4_reference(pack4(u8))
+    scans[2] = 0.0
+    return scans
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nscans", [1, 2, 5, 33])
+def test_k1b_equals_k1_scan_by_scan_on_cuda(batch_scans, cuda_device, nscans):
+    """K1 x B in the design the host picks (one launch, counted), then each
+    design forced through the test hook: every scan bit-equal
+    (``torch.equal``) to K1 on that scan alone, the all-zero scan with no
+    peak; and the batch against the plain ``cen2019_scores_batched``: the
+    same peak positions and values."""
+    x = t(batch_scans[:nscans], cuda_device).contiguous()
+    one = [cen_peaks.cen2019_scores_cuda(s.contiguous(), CFG.features, CFG.radar) for s in x]
+    before = cen_peaks.batched_launch_count
+    got = cen_peaks.cen2019_scores_batched_cuda(x, CFG.features, CFG.radar)
+    assert cen_peaks.batched_launch_count == before + 1
+    runs = {None: got}
+    for design in ("resident", "streamed"):
+        runs[design] = cen_peaks._launch(x, CFG.features, CFG.radar, "k1b", design)
+    torch.cuda.synchronize()
+    for design, got in runs.items():
+        for b in range(nscans):
+            assert torch.equal(got[b], one[b]), (design, b)
+        if nscans > 2:
+            assert not bool(torch.isfinite(got[2]).any())
+    want = np_(tcen.cen2019_scores_batched(x, CFG.features, CFG.radar))
+    g = np_(got)
+    assert np.isfinite(want).sum() > 0
+    np.testing.assert_array_equal(np.isfinite(g), np.isfinite(want))
+    np.testing.assert_array_equal(g[np.isfinite(want)], want[np.isfinite(want)])
+
+
+@pytest.mark.cuda
+def test_k1b_streamed_takes_runtime_taps_on_cuda(batch_scans, cuda_device):
+    """The streamed design with 7 taps (a 1-bin sigma: the run-time tap
+    count) on 5 scans: each bit-equal to K1."""
+    narrow = dataclasses.replace(CFG.features, smooth_sigma_bins=1.0)
+    x = t(batch_scans[:5], cuda_device).contiguous()
+    got = cen_peaks._launch(x, narrow, CFG.radar, "k1b", "streamed")
+    for b in range(5):
+        assert torch.equal(got[b], cen_peaks.cen2019_scores_cuda(x[b].contiguous(), narrow,
+                                                                 CFG.radar)), b

@@ -254,3 +254,75 @@ def test_sc_corr_kernel_empty_and_wide_banks(cuda_device):  # noqa: F811
     with pytest.raises(ValueError, match="sectors"):
         sc_corr.sc_shift_distances_cuda(torch.zeros((20, 65), device=cuda_device),
                                         torch.zeros((3, 20, 65), device=cuda_device))
+
+
+# K2-T with one shared bank: the host's choice of query slots a block, and
+# on the card each slot bit-equal to K2 for that query.
+@pytest.mark.parametrize("t_slots", [1, 3, 16, 17])
+@pytest.mark.parametrize("n", [1, 30, 255, 256, 400, 2048, 4096, 4097, 8192])
+@pytest.mark.parametrize("per_slot", [False, True], ids=["shared", "per_slot"])
+def test_k2t_multi_geometry(t_slots, n, per_slot):
+    """One K2-T launch covers every (slot, row) once: the variant is K2's
+    for n (it fixes the order of every sum); per-slot banks and shared banks
+    under SHARED_MIN_ROWS rows run one slot a block; larger shared banks run
+    query groups of near-equal size, as few as keep SHARED_TARGET_BLOCKS
+    blocks in the launch."""
+    variant, qgroup, bx, by = sc_corr.multi_geometry(t_slots, n, per_slot)
+    k2_variant, rows, k2_blocks = sc_corr.launch_geometry(n)
+    assert (variant, bx) == (k2_variant, k2_blocks)
+    if per_slot or n < sc_corr.SHARED_MIN_ROWS or t_slots == 1:
+        assert qgroup == 1
+    covered = np.zeros(t_slots, int)
+    for g in range(by):
+        covered[g * qgroup:min((g + 1) * qgroup, t_slots)] += 1
+    assert (covered == 1).all() and (by - 1) * qgroup < t_slots
+    if qgroup > 1:
+        assert bx * (by - 1) < sc_corr.SHARED_TARGET_BLOCKS or by == t_slots
+        assert bx * by <= max(sc_corr.SHARED_TARGET_BLOCKS + bx, bx)
+
+
+def _k2t_queries(bank, t_slots, seed=3):
+    """t_slots queries: bank rows rolled by seeded shifts, every fourth with
+    five empty columns."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, len(bank), t_slots)
+    q = np.stack([np.roll(bank[r], int(rng.integers(0, CFG.num_sector)), axis=-1)
+                  for r in rows])
+    q[::4, :, 5:10] = 0.0
+    return q.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_slots", [1, 3, 16, 17])
+@pytest.mark.parametrize("n", [1, 30, 400, 4097])
+def test_k2t_shared_bank_equals_k2_per_slot_on_cuda(t_slots, n, cuda_device):  # noqa: F811
+    """K2-T on one shared bank, at the host's query groups and, through the
+    test hook, at 2 and 16 slots a block: one launch per call, each slot bit-equal (``torch.equal``)
+    to K2 for that query on the bank."""
+    bank = t(_live_bank(n), cuda_device)
+    queries = t(_k2t_queries(np_(bank), t_slots), cuda_device)
+    one = [sc_corr.sc_shift_distances_cuda(q, bank) for q in queries]
+    for qgroup in (None, 2, 16):
+        before = sc_corr.multi_launch_count
+        got = (sc_corr.sc_shift_distances_multi_cuda(queries, bank) if qgroup is None
+               else sc_corr._launch_multi(queries, bank, qgroup))
+        torch.cuda.synchronize()
+        assert sc_corr.multi_launch_count == before + 1
+        for s in range(t_slots):
+            assert torch.equal(got[s], one[s]), (qgroup, s)
+
+
+@pytest.mark.cuda
+def test_k2t_per_slot_banks_unchanged_on_cuda(cuda_device):  # noqa: F811
+    """Per-slot banks keep one slot a block: each slot bit-equal to K2 on its
+    own bank, and a query group is refused for them."""
+    rng = np.random.default_rng(9)
+    base = _live_bank(30)
+    banks = np.stack([np.roll(base, int(rng.integers(0, 60)), axis=-1) for _ in range(5)])
+    bank = t(banks, cuda_device)
+    queries = t(_k2t_queries(base, 5), cuda_device)
+    got = sc_corr.sc_shift_distances_multi_cuda(queries, bank)
+    for s in range(5):
+        assert torch.equal(got[s], sc_corr.sc_shift_distances_cuda(queries[s], bank[s])), s
+    with pytest.raises(ValueError, match="qgroup"):
+        sc_corr._launch_multi(queries, bank, 2)
