@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's odometry, batched-odometry and full-SLAM paths,
-its command line and its multi-device layer once on one NVIDIA GPU.
+its command line, its multi-device layer, and its SCManager interface and
+Cartesian utilities once on one NVIDIA GPU.
 
     python3 chip_smoke.py            (from the repository root)
 
@@ -141,7 +142,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      path).  Prints each rank's K2-T device ms (and the earlier design's, one
      query slot a block), the collectives' ms, the
      solve's ms, the engine's ms per scan and the bank bytes per rank;
- 16. times: K2 (on the all-live bank), K3, K2-T, K3-T (16 slots) and K1 x B
+ 16. times: K2 (on the all-live bank), K3, K2-T (16 slots, on the 30-row
+     prefix and on the all-live bank), K3-T (16 slots) and K1 x B
      (B = 64) against their plain versions, the per-scan SlamEngine.process
      time split into odometry, keyframe step and refine, and the streamed
      run's time per scan beside it;
@@ -169,17 +171,42 @@ Phases, in order; any failure ends the run with a non-zero exit:
      and one batched step under torch.profiler: wall ms, device kernels,
      the device's busy ms and share, and the step's one K1 (K1 x B)
      kernel as the trace holds it, as a share of the busy time and of the
-     wall, beside its device ms above (or that the trace holds none).
+     wall, beside its device ms above (or that the trace holds none);
+ 18. outside the engine: (a) polar_to_cartesian of phase 3's scan to the
+     512 x 512 image at 0.5 m and patch_descriptors at that scan's 1024
+     features (extract_scan_features' xy), on the card and on CPU copies
+     of the same inputs: max abs err <= 1e-4 and the same zeros, with the
+     median ms of each on the card; (b) ScanContextManager(capacity=4096)
+     on the card (created without device=) fed the 400 landmark clouds of
+     phase 6's bank, a detectLoopClosureID after every insert from the
+     31st, in "full" and in "ringkey" mode, a CPU manager fed the same
+     clouds beside each: every (index, yaw) equal, and per insert no host
+     sync (torch.cuda.set_sync_debug_mode) and no K2 launch, per detect
+     one of each; a second session of 60 clouds within 0.5 m / 0.5 rad of
+     60 of those poses, descriptors made on the card and saved with
+     saveScancontextAndKeys, each queried through the first manager's
+     detectLoopClosureIDBetweenSession, equal to the CPU manager's answer
+     (prints how many found a loop, and how many at the row drawn near);
+     (c) detect_loop_between_sessions on the all-live bank at 0, 1, 400 and
+     4096 valid rows against the plain version (the same index, found flag
+     and yaw, dist within 2e-5), one K2 launch on max(n, 1) rows each, and
+     the 4096-row call's median ms and, from the profiler's trace of one
+     call, its device kernels, busy ms and K2 kernel ms beside K2's device
+     ms from phase 17.  Every
+     counter is reset before (b) and read after (c): K2 once per detect,
+     query and call, nothing else.
 
 The line before the last is the kernel report
 {"kernels": [{"name", "route", "source", "replaces", "launches",
 "launches_odometry", "launches_slam", "launches_streaming",
-"launches_batched", "launches_cli", "launches_mesh", "max_abs_err", "ms", "device_ms",
+"launches_batched", "launches_cli", "launches_mesh", "launches_sc_manager",
+"max_abs_err", "ms", "device_ms",
 "plain_ms", "bound_ms", "bound_by", "library_ms"}]} ("launches": the
 per-scan full-SLAM path's for K1, K2 and K3, the streamed path's for K2-T
 and K3-T, the batched odometry path's for K1 x B; "launches_cli": the sum
 over phase 14's three CLI calls, prewarm included; "launches_mesh": phase
-15's mesh paths (search, odometry, engine), summed over the ranks; "ms": one
+15's mesh paths (search, odometry, engine), summed over the ranks;
+"launches_sc_manager": phase 18's (b) and (c); "ms": one
 wrapper call fenced by
 CUDA events, median; "library_ms": null, since no single PyTorch call
 computes any of the six functions), the last line
@@ -200,6 +227,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 import collections
 from collections import defaultdict
 
@@ -213,10 +241,12 @@ from navtech_radar_slam_torch.data import RadarSimulator, pack4
 from navtech_radar_slam_torch.models import posegraph as pg_mod
 from navtech_radar_slam_torch.models import slam as slam_mod
 from navtech_radar_slam_torch.models.odometry import (
-    RadarOdometry, decode_power, default_azimuths, extract_scan_features_batched,
-    make_batched_odometry_step, match_feature_pair, register_step)
+    RadarOdometry, decode_power, default_azimuths, extract_scan_features,
+    extract_scan_features_batched, make_batched_odometry_step, match_feature_pair,
+    register_step)
 from navtech_radar_slam_torch.ops import cen2019, icp, registration, scancontext
-from navtech_radar_slam_torch.ops.features import constellation_descriptors
+from navtech_radar_slam_torch.ops.features import (
+    constellation_descriptors, patch_descriptors, polar_to_cartesian)
 from navtech_radar_slam_torch.ops.kernels import cen_peaks, nn_dist, sc_corr
 from navtech_radar_slam_torch.utils.geometry import se2_between_np, se2_mul_np, se2_to_se3_np
 
@@ -264,6 +294,12 @@ K1B_REPORT_SIZES = (1, 8, 32, 64)
 K2T_REPORT_ROWS = (30, 400, 4096)
 #: the most device launches (kernels and other nodes) one CG matvec may take
 MATVEC_MAX_LAUNCHES = 100
+#: phase 18: the manager detects after every insert past this many, as the
+#: engine's recency exclusion first allows; the second session's clouds; the
+#: Cartesian utilities' bound against their CPU run
+SC_MANAGER_FIRST_DETECT = 30
+SESSION_B_CLOUDS = 60
+CART_ATOL = 1e-4
 # NVIDIA H100 SXM data-sheet peaks (at 700 W): HBM3 bytes/s, fp32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -306,19 +342,30 @@ def compare_kernel(power: torch.Tensor, cfg: SlamConfig) -> float:
     return err
 
 
+def sc_poses() -> np.ndarray:
+    """The 400 random poses of the bank rows of ``sc_inputs`` (seed 7)."""
+    rng = np.random.default_rng(7)
+    return np.column_stack([rng.uniform(-60, 60, 400), rng.uniform(-60, 60, 400),
+                            rng.uniform(-np.pi, np.pi, 400)])
+
+
+def landmark_cloud(sim: RadarSimulator, pose: np.ndarray, dev) -> torch.Tensor:
+    """The simulator's landmarks visible from ``pose``, (K, 2) sensor-frame
+    metres on ``dev``."""
+    r, b, _ = sim.visible_landmarks(pose)
+    return torch.as_tensor(np.column_stack([r * np.cos(b), r * np.sin(b)]),
+                           dtype=torch.float32, device=dev)
+
+
 def sc_inputs(cfg: SlamConfig, sim: RadarSimulator, dev) -> tuple:
     """A query and a (max_keyframes, R, S) bank of make_scancontext
     descriptors of simulator landmark clouds at random poses: 400 rows
     live, the rest zero; the query is taken near the pose of row 123."""
-    rng = np.random.default_rng(7)
-    poses = np.column_stack([rng.uniform(-60, 60, 400), rng.uniform(-60, 60, 400),
-                             rng.uniform(-np.pi, np.pi, 400)])
+    poses = sc_poses()
     query_pose = poses[123] + np.asarray([0.4, -0.3, 0.5])
 
     def desc(pose):
-        r, b, _ = sim.visible_landmarks(pose)
-        xy = torch.as_tensor(np.column_stack([r * np.cos(b), r * np.sin(b)]),
-                             dtype=torch.float32, device=dev)
+        xy = landmark_cloud(sim, pose, dev)
         n = xy.shape[0]
         return scancontext.make_scancontext(
             xy, torch.zeros(n, device=dev), torch.ones(n, dtype=torch.bool, device=dev),
@@ -1902,6 +1949,218 @@ def mesh_phase(cfg: SlamConfig, sim: RadarSimulator, live_bank: torch.Tensor,
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the Cartesian utilities, the SCManager interface and the
+# multi-session query (outside the engine)
+# ---------------------------------------------------------------------------
+
+def host_syncs(fn) -> tuple:
+    """(fn's result, the synchronizing CUDA operations it made), counted
+    from torch.cuda.set_sync_debug_mode's warnings (not its one-time note
+    that the mode is a prototype)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def cartesian_phase(x: torch.Tensor, cfg: SlamConfig, dev, name_power: str) -> None:
+    """Phase 18 (a): polar_to_cartesian of one full-size scan to the
+    configured 512 x 512 image at 0.5 m, then patch_descriptors at the scan's
+    1024 features (extract_scan_features' xy), on the card and on CPU copies
+    of the same inputs: max abs err <= CART_ATOL and the same zeros."""
+    fc = cfg.features
+    az = torch.as_tensor(default_azimuths(cfg), device=dev)
+    xy = extract_scan_features(x, az, cfg).xy
+    cart = polar_to_cartesian(x, fc, cfg.radar)
+    patches = patch_descriptors(cart, xy, fc)
+    runs = {
+        "polar_to_cartesian": (cart, polar_to_cartesian(x.cpu(), fc, cfg.radar),
+                               lambda: polar_to_cartesian(x, fc, cfg.radar)),
+        "patch_descriptors": (patches, patch_descriptors(cart.cpu(), xy.cpu(), fc),
+                              lambda: patch_descriptors(cart, xy, fc)),
+    }
+    torch.cuda.synchronize()
+    for name, (got, want, call) in runs.items():
+        got = got.cpu()
+        err = float((got - want).abs().max())
+        zeros = int(((got == 0) != (want == 0)).sum())
+        for _ in range(5):
+            call()
+        ms = median_ms(call, TIMED_RUNS)
+        wall, busy, n_kernels, _, _, markers = device_busy(call)
+        seen = "no device events" if busy is None else f"busy {busy:.4f} ms"
+        print(f"{name} {tuple(got.shape)} on the card against the CPU: max abs err {err:.3g}, "
+              f"zeros differing {zeros} (zeros {int((want == 0).sum())}); median {ms:.4f} ms "
+              f"of {TIMED_RUNS} CUDA-event-timed calls; one call under torch.profiler "
+              f"{wall:.3f} ms wall, device kernels {n_kernels}, {seen} (marker kernels kept "
+              f"{markers} of {PROFILE_MARKERS}) [{name_power}]")
+        if not err <= CART_ATOL or zeros:
+            raise AssertionError(f"{name} on the card differs from the CPU: {err} > "
+                                 f"{CART_ATOL} or {zeros} zeros differ")
+
+
+def manager_run(scfg, clouds: list, clouds_cpu: list, capacity: int) -> tuple:
+    """One manager on the card (no device given) and one on the CPU fed the
+    same clouds, a detect after every insert past SC_MANAGER_FIRST_DETECT:
+    every (index, yaw) the CPU's, no host sync and no K2 launch an insert,
+    one of each a detect.  Returns the two managers."""
+    gm = scancontext.ScanContextManager(scfg, capacity=capacity)
+    cm = scancontext.ScanContextManager(scfg, capacity=capacity, device="cpu")
+    if gm.bank.device.type != "cuda":
+        raise AssertionError(f"ScanContextManager without device= is on {gm.bank.device}")
+    found, per_insert, per_detect = 0, set(), set()
+    for i, (xy, xy_cpu) in enumerate(zip(clouds, clouds_cpu)):
+        before = sc_corr.launch_count
+        _, syncs = host_syncs(lambda: gm.makeAndSaveScancontextAndKeys(xy))
+        per_insert.add((syncs, sc_corr.launch_count - before))
+        cm.makeAndSaveScancontextAndKeys(xy_cpu)
+        if i < SC_MANAGER_FIRST_DETECT:
+            continue
+        before = sc_corr.launch_count
+        got, syncs = host_syncs(gm.detectLoopClosureID)
+        per_detect.add((syncs, sc_corr.launch_count - before))
+        want = cm.detectLoopClosureID()
+        found += got[0] >= 0
+        if got != want:
+            raise AssertionError(f"ScanContextManager ({scfg.search_mode}) after {i + 1} "
+                                 f"inserts: the card's (index, yaw) {got}, the CPU's {want}")
+    cells = int((gm.bank.cpu() != cm.bank).sum())
+    n_detects = len(clouds) - SC_MANAGER_FIRST_DETECT
+    print(f"  {scfg.search_mode} mode: {len(clouds)} inserts, {n_detects} detects, loops "
+          f"{found}; (host syncs, K2 launches) an insert {sorted(per_insert)}, "
+          f"a detect {sorted(per_detect)}; every (index, yaw) equal to the CPU manager's; "
+          f"bank cells differing {cells}")
+    if per_insert != {(0, 0)} or per_detect != {(1, 1)}:
+        raise AssertionError(f"ScanContextManager ({scfg.search_mode}): (host syncs, K2 "
+                             f"launches) an insert {per_insert}, a detect {per_detect}; "
+                             f"expected (0, 0) and (1, 1)")
+    return gm, cm
+
+
+def sc_manager_phase(cfg: SlamConfig, sim: RadarSimulator, query: torch.Tensor,
+                     live_bank: torch.Tensor, k2_ms: float, dev, name_power: str) -> dict:
+    """Phase 18 (b, c): the SCManager interface over the 400 landmark
+    clouds of ``sc_inputs`` in "full" and "ringkey" mode, a 60-cloud second
+    session through saveScancontextAndKeys and
+    detectLoopClosureIDBetweenSession, and detect_loop_between_sessions on
+    the all-live bank at 0, 1, 400 and 4096 valid rows against the plain
+    version; every counter reset just before and read just after.  Returns
+    the launches."""
+    capacity = cfg.keyframes.max_keyframes
+    poses = sc_poses()
+    clouds = [landmark_cloud(sim, p, dev) for p in poses]
+    clouds_cpu = [c.cpu() for c in clouds]
+    torch.cuda.synchronize()
+    print(f"ScanContextManager(capacity={capacity}) on the card beside one on the CPU, "
+          f"{len(clouds)} landmark clouds:")
+    reset_counts()
+    managers = {}
+    for mode in ("full", "ringkey"):
+        scfg = dataclasses.replace(cfg.scancontext, search_mode=mode)
+        managers[mode] = manager_run(scfg, clouds, clouds_cpu, capacity)
+
+    # a second session near 60 of the first session's poses
+    scfg = managers["full"][0].cfg
+    rng = np.random.default_rng(29)
+    rows = np.sort(rng.choice(len(poses), SESSION_B_CLOUDS, replace=False))
+    ang = rng.uniform(0.0, 2.0 * np.pi, SESSION_B_CLOUDS)
+    rad = rng.uniform(0.0, 0.5, SESSION_B_CLOUDS)
+    poses_b = poses[rows] + np.column_stack([rad * np.cos(ang), rad * np.sin(ang),
+                                             rng.uniform(-0.5, 0.5, SESSION_B_CLOUDS)])
+    sm = scancontext.ScanContextManager(scfg, capacity=capacity)
+    saves = set()
+    for pose in poses_b:
+        xy = landmark_cloud(sim, pose, dev)
+        n = xy.shape[0]
+        desc = scancontext.make_scancontext(xy, torch.zeros(n, device=dev),
+                                            torch.ones(n, dtype=torch.bool, device=dev), scfg)
+        before = sc_corr.launch_count
+        _, syncs = host_syncs(lambda: sm.saveScancontextAndKeys(desc))
+        saves.add((syncs, sc_corr.launch_count - before))
+    gm, cm = managers["full"]
+    queries, found, at_row = set(), 0, 0
+    for j in range(SESSION_B_CLOUDS):
+        q, q_cpu = sm.bank[j], sm.bank[j].cpu()
+        before = sc_corr.launch_count
+        got, syncs = host_syncs(lambda: gm.detectLoopClosureIDBetweenSession(q))
+        queries.add((syncs, sc_corr.launch_count - before))
+        want = cm.detectLoopClosureIDBetweenSession(q_cpu)
+        found += got[0] >= 0
+        at_row += got[0] == rows[j]
+        if got != want:
+            raise AssertionError(f"second session, query {j}: the card's (index, yaw) {got}, "
+                                 f"the CPU's {want}")
+    print(f"  second session: {SESSION_B_CLOUDS} descriptors made on the card, saved with "
+          f"saveScancontextAndKeys ((host syncs, K2 launches) a save {sorted(saves)}), each "
+          f"queried through the first manager's detectLoopClosureIDBetweenSession "
+          f"({sorted(queries)} a query): found {found}, at the row drawn near {at_row}; every "
+          f"(index, yaw) equal to the CPU manager's")
+    if saves != {(0, 0)} or queries != {(1, 1)} or sm.num != SESSION_B_CLOUDS:
+        raise AssertionError(f"second session: saves {saves}, queries {queries} (expected "
+                             f"(0, 0) and (1, 1)), {sm.num} rows saved")
+
+    # detect_loop_between_sessions on the all-live bank against the plain version
+    scored = []
+    k2 = sc_corr.sc_shift_distances_cuda
+
+    def recorded_k2(q, b):
+        scored.append(b.shape[0])
+        return k2(q, b)
+
+    query_cpu, live_cpu = query.cpu(), live_bank.cpu()
+    sc_corr.sc_shift_distances_cuda = recorded_k2
+    try:
+        for n in (0, 1, 400, live_bank.shape[0]):
+            before = len(scored)
+            got = scancontext.detect_loop_between_sessions(query, live_bank, n, scfg)
+            want = scancontext.detect_loop_between_sessions(query_cpu, live_cpu, n, scfg)
+            g = [float(v) for v in got]
+            w = [float(v) for v in want]
+            dist_ok = (g[1] == w[1] == float("inf")) or abs(g[1] - w[1]) <= SC_ATOL
+            print(f"  detect_loop_between_sessions, {n} of {live_bank.shape[0]} rows valid: "
+                  f"(idx, dist, yaw, found) {g} / plain {w}; K2 bank rows {scored[before:]}")
+            if g[0] != w[0] or g[2] != w[2] or g[3] != w[3] or not dist_ok:
+                raise AssertionError(f"detect_loop_between_sessions at {n} rows differs from "
+                                     f"the plain version: {g} / {w}")
+            if scored[before:] != [max(n, 1)]:
+                raise AssertionError(f"detect_loop_between_sessions at {n} rows: K2 launches "
+                                     f"on {scored[before:]} rows, expected [{max(n, 1)}]")
+    finally:
+        sc_corr.sc_shift_distances_cuda = k2
+    launches = read_counts()
+    want_k2 = 2 * (len(clouds) - SC_MANAGER_FIRST_DETECT) + SESSION_B_CLOUDS + 4
+    others = {k: v for k, v in launches.items() if k != "sc_corr" and v}
+    print(f"  launches {launches}: K2 {want_k2} expected (one a detect, a between-session "
+          f"query and a detect_loop_between_sessions call)")
+    if launches["sc_corr"] != want_k2 or others:
+        raise AssertionError(f"phase 18 launched {launches}, expected K2 {want_k2} and "
+                             f"nothing else")
+    # the call's host work outlasts its device work, so its device time is
+    # read from the profiler's trace of one call
+    def call():
+        return scancontext.detect_loop_between_sessions(query, live_bank, live_bank.shape[0],
+                                                        scfg)
+
+    for _ in range(5):
+        call()
+    wall_ms = median_ms(call, TIMED_RUNS)
+    wall, busy, n_kernels, k2_trace, n_k2, markers = device_busy(call, "sc_corr_kernel")
+    seen = ("no device events" if busy is None else
+            f"busy {busy:.5f} ms, its K2 kernel {k2_trace:.5f} ms ({n_k2} launch)")
+    print(f"detect_loop_between_sessions at {tuple(live_bank.shape)} (all valid): median "
+          f"{wall_ms:.4f} ms of {TIMED_RUNS} CUDA-event-timed calls; one call under "
+          f"torch.profiler {wall:.3f} ms wall, device kernels {n_kernels}, {seen} (marker "
+          f"kernels kept {markers} of {PROFILE_MARKERS}); K2 alone at that bank {k2_ms:.5f} ms "
+          f"by CUDA events (phase 17) [{name_power}]")
+    return launches
+
+
+
 def main() -> None:
     # 1. the card
     if not torch.cuda.is_available():
@@ -2152,6 +2411,13 @@ def main() -> None:
     print(f"K2-T sc_shift_distances_multi {tuple(queries.shape)} x {tuple(prefix.shape)}: "
           f"kernel {k2t_ms:.4f} ms, plain {k2t_plain:.4f} ms (halves {pa:.4f} / {pb:.4f}), "
           f"median of {TIMED_RUNS} CUDA-event-timed runs each [{name_power}]")
+    shared_ms, shared_plain, pa, pb = kernel_vs_plain(
+        lambda: sc_corr.sc_shift_distances_multi_cuda(queries, live_bank),
+        lambda: scancontext.sc_shift_distance_matrix_multi_plain(queries, live_bank))
+    print(f"K2-T sc_shift_distances_multi {tuple(queries.shape)} x {tuple(live_bank.shape)} "
+          f"(shared bank, all live): kernel {shared_ms:.4f} ms, plain {shared_plain:.4f} ms "
+          f"(halves {pa:.4f} / {pb:.4f}), median of {TIMED_RUNS} CUDA-event-timed runs each "
+          f"[{name_power}]")
     k3t_ms, k3t_plain, pa, pb = kernel_vs_plain(
         lambda: nn_dist.nearest_neighbors_multi_cuda(src_t, tgt_t, tv_t),
         lambda: icp.nearest_neighbors_plain(src_t, tgt_t, tv_t))
@@ -2353,6 +2619,15 @@ def main() -> None:
         print(f"{label} under torch.profiler: {wall:.3f} ms wall, device kernels {n_kernels}, "
               f"busy {seen}; marker kernels the trace kept {markers} of {PROFILE_MARKERS} "
               f"[{name_power}]")
+
+    # 18. the Cartesian utilities, the SCManager interface and the
+    # multi-session query
+    cartesian_phase(x, cfg, dev, name_power)
+    k2_report = next(r for r in report if r["name"] == "sc_shift_distances")
+    sc_launches = sc_manager_phase(cfg, sim, query, live_bank, k2_report["device_ms"], dev,
+                                   name_power)
+    for r in report:
+        r["launches_sc_manager"] = sc_launches[specs[r["name"]][6]]
 
     if "jax" in sys.modules or any(m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")

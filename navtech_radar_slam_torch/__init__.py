@@ -30,6 +30,11 @@ and the command line around them (``cli``: MulRan PNG sequences read by
 the multi-device layer on ``torch.distributed`` (``parallel``: the
 descriptor bank split over the ranks, the distributed pose-graph solve,
 data-parallel odometry, and the engine's and the command line's mesh).
+Outside the engine: the reference's SCManager interface
+(``ops.scancontext.ScanContextManager``: one K2 launch a detect) and the
+multi-session query ``detect_loop_between_sessions``, the Cartesian
+utilities of ``ops.features`` (``polar_to_cartesian``,
+``patch_descriptors``), and ``models.odometry.make_odometry_step``.
 
 The package stands alone: it keeps its own copies of the configuration
 (``config``) and of the data helpers it uses (``data``: the simulator, the
@@ -37,8 +42,9 @@ The package stands alone: it keeps its own copies of the configuration
 JAX package, nor jax or OpenCV.
 
 The entry points (``entry``, ``RadarOdometry``, ``SlamEngine``,
-``PoseGraph``, ``empty_graph``) run on the card unless the caller passes
-``device="cpu"``, and raise when no card is there.  Functions take tensors
+``PoseGraph``, ``empty_graph``, ``ScanContextManager``, the step factories)
+run on the card unless the caller passes ``device="cpu"``, and raise when
+no card is there.  Functions take tensors
 on an explicit device; a CUDA tensor always runs the hand-written kernels
 (there is no fallback), a CPU tensor their plain PyTorch twins.
 """

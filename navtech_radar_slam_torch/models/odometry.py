@@ -5,7 +5,8 @@ cen2019 extraction (the CUDA kernel on a CUDA tensor), constellation
 descriptors, mutual matching and ORORA-style registration, then two de-skew
 re-registrations of the matched set (``odometry_step``).  ``RadarOdometry``
 is the host accumulator: one fetch of (ok, rel_pose) per scan, the pose
-composed on the host in float64.
+composed on the host in float64; ``make_odometry_step`` is the step with
+the configuration bound.
 
 ``make_batched_odometry_step`` advances B independent streams in one call
 (mapping fleets, dataset reprocessing): one batched extraction with one
@@ -273,6 +274,31 @@ def odometry_step(
     return curr, res, curr_out
 
 
+def _require_device(fn: str, dev: torch.device, prev: ScanFeatures, **named) -> None:
+    """Raise unless every tensor of ``named`` and of ``prev`` is on ``dev``."""
+    for name, x in list(named.items()) + [(f"prev.{k}", v) for k, v in prev._asdict().items()]:
+        if x is not None and (x.device.type != dev.type
+                              or (dev.index is not None and x.device.index != dev.index)):
+            raise ValueError(f"{fn}: {name} is on {x.device}, the step runs on {dev}")
+
+
+def make_odometry_step(cfg: SlamConfig, device: torch.device | str = DEFAULT_DEVICE
+                       ) -> Callable:
+    """``odometry_step`` with the configuration bound (the JAX package's
+    jitted factory; plain Python here): (power, azimuths, prev, twist,
+    ray_valid=None, packed=False) -> (raw carry, result, de-skewed
+    features).  Every input must be on ``device`` (the card unless the
+    caller names the CPU); one on another device raises."""
+    dev = resolve_device(device)
+
+    def step(power, azimuths, prev, twist, ray_valid=None, packed=False):
+        _require_device("make_odometry_step", dev, prev, power=power, azimuths=azimuths,
+                        twist=twist, ray_valid=ray_valid)
+        return odometry_step(power, azimuths, prev, twist, cfg, ray_valid, packed)
+
+    return step
+
+
 def make_batched_odometry_step(cfg: SlamConfig,
                                device: torch.device | str = DEFAULT_DEVICE) -> Callable:
     """Data-parallel front-end: one call advances B independent scan streams
@@ -297,13 +323,9 @@ def make_batched_odometry_step(cfg: SlamConfig,
     pair = torch.func.vmap(functools.partial(register_step, cfg=cfg))
 
     def step(powers, azimuths, prev, twists, ray_valids=None, packed=False):
-        named = [("powers", powers), ("azimuths", azimuths), ("twists", twists),
-                 ("ray_valids", ray_valids)]
-        for name, x in named + [(f"prev.{k}", v) for k, v in prev._asdict().items()]:
-            if x is not None and (x.device.type != dev.type
-                                  or (dev.index is not None and x.device.index != dev.index)):
-                raise ValueError(f"make_batched_odometry_step: {name} is on {x.device}, "
-                                 f"the step runs on {dev}")
+        _require_device("make_batched_odometry_step", dev, prev,
+                        powers=powers, azimuths=azimuths, twists=twists,
+                        ray_valids=ray_valids)
         curr = extract_scan_features_batched(powers, azimuths, cfg, ray_valids, packed)
         res, curr_out = pair(prev, curr, twists)
         return curr, res, curr_out

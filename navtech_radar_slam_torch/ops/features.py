@@ -1,18 +1,23 @@
-"""Constellation descriptors and mutual-nearest matching in PyTorch.
+"""Constellation descriptors and mutual-nearest matching in PyTorch, and
+the Cartesian rendering utilities.
 
-Counterpart of ``navtech_radar_slam_tpu.ops.features`` (the pipeline's two
-functions; ``polar_to_cartesian`` and ``patch_descriptors`` feed no
-pipeline and are not ported yet).  Both matmuls run in true float32: the
-package turns TF32 off at import.
+Counterpart of ``navtech_radar_slam_tpu.ops.features``: the pipeline's
+constellation descriptors and matcher (both matmuls in true float32: the
+package turns TF32 off at import), and the polar -> Cartesian bilinear
+rendering with radially-aligned image-patch descriptors
+(``polar_to_cartesian``, ``_bilinear_sample``, ``patch_descriptors``;
+visualisation and experiments, on no pipeline), plain torch ops on the
+device of their input.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
 
-from navtech_radar_slam_torch.config import FeatureConfig
+from navtech_radar_slam_torch.config import FeatureConfig, RadarConfig
 
 
 def _radial_frame(xy: torch.Tensor):
@@ -23,6 +28,103 @@ def _radial_frame(xy: torch.Tensor):
     c = torch.where(far, xy[:, 0] / safe, torch.ones_like(rngs))
     s = torch.where(far, xy[:, 1] / safe, torch.zeros_like(rngs))
     return c, s
+
+
+def _true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` rounded as one division on every device: CUDA applies a
+    Python-scalar divisor as a multiplication by its reciprocal, up to an
+    ulp off, and an ulp of a range-bin coordinate (~2.4e-4 at 3,000 bins)
+    moves a bilinear sample by that share of the step between two bins."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+def polar_to_cartesian(power: torch.Tensor, fcfg: FeatureConfig, rcfg: RadarConfig
+                       ) -> torch.Tensor:
+    """Render the (S, S) Cartesian image of a (NA, NB) polar power image by
+    bilinear sampling; x right, y down-range of azimuth 0, the sensor at the
+    centre, zero beyond the last range bin.
+
+    Each pixel's range and bearing are taken in float64 and rounded to
+    float32, so the CPU and the card sample at the same coordinates: torch's
+    float32 sqrt on the CPU is not always correctly rounded (an ulp of a
+    range is 2.4e-4 of a bin at 180 m), and CUDA's atan2f is not the CPU's."""
+    S = fcfg.cart_size
+    na = rcfg.num_azimuths
+    nrb = rcfg.num_range_bins
+    ij = (torch.arange(S, dtype=torch.float32, device=power.device) - S / 2 + 0.5) \
+        * fcfg.cart_resolution
+    x = ij[None, :]                      # columns -> x
+    y = ij[:, None]                      # rows -> y
+    r = torch.sqrt((x * x + y * y).to(torch.float64)).to(torch.float32)
+    theta = torch.remainder(torch.atan2(y.to(torch.float64), x.to(torch.float64))
+                            .to(torch.float32), 2.0 * math.pi)
+
+    az_f = _true_div(theta, 2.0 * math.pi) * na - 0.5
+    rb_f = _true_div(r, rcfg.range_resolution) - 0.5
+    a0 = torch.floor(az_f).to(torch.int64)
+    r0 = torch.floor(rb_f).to(torch.int64)
+    wa = az_f - a0.to(torch.float32)
+    wr = rb_f - r0.to(torch.float32)
+
+    # the first half-bin of azimuth has a0 = -1: remainder takes the
+    # divisor's sign, as jnp.mod does
+    a0m = torch.remainder(a0, na)
+    a1m = torch.remainder(a0 + 1, na)
+    in_range = (r0 >= 0) & (r0 + 1 < nrb)
+    r0c = torch.clamp(r0, 0, nrb - 1)
+    r1c = torch.clamp(r0 + 1, 0, nrb - 1)
+    out = (power[a0m, r0c] * (1 - wa) * (1 - wr)
+           + power[a0m, r1c] * (1 - wa) * wr
+           + power[a1m, r0c] * wa * (1 - wr)
+           + power[a1m, r1c] * wa * wr)
+    return torch.where(in_range, out, torch.zeros_like(out))
+
+
+def _bilinear_sample(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Sample img[(v, u)] bilinearly; u = column (x), v = row (y); zero
+    where a tap falls outside the image."""
+    S = img.shape[0]
+    u0 = torch.floor(u).to(torch.int64)
+    v0 = torch.floor(v).to(torch.int64)
+    du = u - u0.to(u.dtype)
+    dv = v - v0.to(v.dtype)
+    ok = (u0 >= 0) & (u0 + 1 < S) & (v0 >= 0) & (v0 + 1 < S)
+    u0c = torch.clamp(u0, 0, S - 1)
+    u1c = torch.clamp(u0 + 1, 0, S - 1)
+    v0c = torch.clamp(v0, 0, S - 1)
+    v1c = torch.clamp(v0 + 1, 0, S - 1)
+    out = (img[v0c, u0c] * (1 - du) * (1 - dv)
+           + img[v0c, u1c] * du * (1 - dv)
+           + img[v1c, u0c] * (1 - du) * dv
+           + img[v1c, u1c] * du * dv)
+    return torch.where(ok, out, torch.zeros_like(out))
+
+
+def patch_descriptors(cart: torch.Tensor, xy: torch.Tensor, fcfg: FeatureConfig
+                      ) -> torch.Tensor:
+    """(K, patch²) centred, unit-norm intensity patches of the Cartesian
+    image at (K, 2) sensor-frame feature positions (m), sampled in each
+    feature's radial frame, so a sensor rotation leaves them unchanged."""
+    S = fcfg.cart_size
+    P = fcfg.patch_size
+    res = fcfg.cart_resolution
+    u = _true_div(xy[:, 0], res) + S / 2 - 0.5
+    v = _true_div(xy[:, 1], res) + S / 2 - 0.5
+
+    offs = torch.arange(P, dtype=torch.float32, device=xy.device) - (P - 1) / 2.0
+    du, dv = torch.meshgrid(offs, offs, indexing="xy")
+    du = du.reshape(-1)[None, :]                  # (1, P²)
+    dv = dv.reshape(-1)[None, :]
+    # rotate the sampling grid into the radial frame of each feature
+    c, s = _radial_frame(xy)
+    c, s = c[:, None], s[:, None]
+    uu = u[:, None] + (c * du - s * dv)           # (K, P²)
+    vv = v[:, None] + (s * du + c * dv)
+    patches = _bilinear_sample(cart, uu, vv)
+
+    patches = patches - torch.mean(patches, dim=1, keepdim=True)
+    norm = torch.linalg.norm(patches, dim=1, keepdim=True)
+    return patches / torch.clamp(norm, min=1e-6)
 
 
 def constellation_descriptors(

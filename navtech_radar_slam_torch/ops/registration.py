@@ -19,6 +19,7 @@ import torch
 
 from navtech_radar_slam_torch.config import RegistrationConfig
 from navtech_radar_slam_torch.ops.features import MatchSet, top_k_stable
+from navtech_radar_slam_torch.utils.ordered import halving_sum
 
 
 class RegistrationResult(NamedTuple):
@@ -40,25 +41,10 @@ def point_sigmas(ranges: torch.Tensor, cfg: RegistrationConfig) -> torch.Tensor:
     return torch.sqrt(cfg.sigma_range ** 2 + tang * tang)
 
 
-def _halving_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis by halving it with elementwise adds (zeros pad
-    it to a power of two).  The order of the adds depends only on the
-    length, so a batch of rows (``torch.func.vmap``) sums each row exactly
-    as that row alone; a reduction kernel may split one row across threads
-    otherwise than it splits many."""
-    n = x.shape[-1]
-    width = 1 << max(n - 1, 0).bit_length()
-    x = torch.nn.functional.pad(x, (0, width - n))
-    while x.shape[-1] > 1:
-        half = x.shape[-1] // 2
-        x = x[..., :half] + x[..., half:]
-    return x[..., 0]
-
-
 def _doubling_cumsum(x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum over the last axis by doubling shifts (element i
     adds element i - s for s = 1, 2, 4, ...), each an elementwise add.  As
-    with ``_halving_sum``, the order of the adds depends only on the length,
+    with ``halving_sum``, the order of the adds depends only on the length,
     so a batch of rows (``torch.func.vmap``) sums each row exactly as that
     row alone; CUDA's scan kernel orders a row's adds by the number of rows."""
     n = x.shape[-1]
@@ -80,7 +66,7 @@ def spectral_inlier_scores(matches: MatchSet, cfg: RegistrationConfig) -> torch.
     So the product is a row-wise sum (a batched ``@`` rounds unlike a
     matrix-vector product), the iterations scale v by its max (exact in any
     order; the direction is the same as with JAX's per-iteration unit norm),
-    and the one unit norm at the end sums by ``_halving_sum``.  The row sum
+    and the one unit norm at the end sums by ``halving_sum``.  The row sum
     is torch's reduction, which on the card may split a row by the shape:
     ``tests/test_torch_batched_odometry.py`` holds the invariance on the
     CPU, and ``chip_smoke.py`` on the card at B = 64 of the default config."""
@@ -100,7 +86,7 @@ def spectral_inlier_scores(matches: MatchSet, cfg: RegistrationConfig) -> torch.
     for _ in range(cfg.spectral_iters):
         v = (Af * v[None, :]).sum(-1)
         v = v / torch.clamp(torch.amax(v), min=1e-9)
-    v = v / torch.clamp(torch.sqrt(_halving_sum(v * v)), min=1e-9)
+    v = v / torch.clamp(torch.sqrt(halving_sum(v * v)), min=1e-9)
     return torch.where(va, torch.abs(v), torch.zeros_like(v))
 
 
@@ -245,7 +231,7 @@ def anisotropic_refine(
     information and Cauchy robustness; residual e_i = R a_i + t - b_i,
     Jacobian [I2 | dR/dtheta a_i].  The contractions run in true fp32: each
     point's products with its 2 x 2 information are elementwise, and the
-    sums over the points are ``_halving_sum``'s, so under ``torch.func.vmap``
+    sums over the points are ``halving_sum``'s, so under ``torch.func.vmap``
     each stream sums as that stream alone (the batched matmul an einsum
     becomes chose its order of summation by the batch size on the card);
     they sum metric coordinates of up to ~80 m."""
@@ -264,9 +250,9 @@ def anisotropic_refine(
         WrJ = torch.sum((W * rho)[:, :, :, None] * J[:, None, :, :], dim=2)   # (M, 2, 3)
         Hm = torch.sum(J[:, :, :, None] * WrJ[:, :, None, :], dim=1)        # (M, 3, 3)
         gm = torch.sum(J * (We[:, :, None] * rho[:, :, 0, None]), dim=1)    # (M, 3)
-        H = _halving_sum(Hm.permute(1, 2, 0)) + 1e-6 * torch.eye(
+        H = halving_sum(Hm.permute(1, 2, 0)) + 1e-6 * torch.eye(
             3, dtype=a.dtype, device=a.device)
-        g = _halving_sum(gm.T)
+        g = halving_sum(gm.T)
         delta = _solve3x3(H, -g)
         theta, t = theta + delta[2], t + delta[:2]
     return theta, t

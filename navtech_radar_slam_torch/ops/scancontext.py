@@ -12,12 +12,18 @@ plain PyTorch version below.  ``sc_shift_distance_matrix_multi`` is that of
 K2-T, T queries in one launch, which the streaming segment's T-slot
 detectors (``detect_loop_multi``, ``detect_loop_ringkey_multi``) call.
 
-Not ported yet: ``ScanContextManager`` and
-``detect_loop_between_sessions`` (the multi-session API).
+The multi-session API: ``detect_loop_between_sessions`` (one query against
+another session's bank, one K2 launch on the card) and
+``ScanContextManager``, the reference's SCManager interface over one bank
+on the device.  A detector's candidate is picked with ``gather``, not by
+indexing with a 0-d tensor (which reads the index back to the host), so a
+detect on the card waits for the device only where its caller reads the
+candidate.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple, Tuple
 
@@ -25,6 +31,8 @@ import torch
 
 from navtech_radar_slam_torch.config import ScanContextConfig
 from navtech_radar_slam_torch.ops.kernels import sc_corr
+from navtech_radar_slam_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from navtech_radar_slam_torch.utils.ordered import halving_sum
 
 _TWO_PI = 2.0 * math.pi
 
@@ -65,14 +73,36 @@ def make_scancontext(xy: torch.Tensor, z: torch.Tensor, valid: torch.Tensor,
     return torch.where(torch.isfinite(desc), desc, torch.zeros_like(desc))
 
 
+def _ordered_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in float64, with the adds in one order on
+    every device (``halving_sum``).  The ring-key prefilter and the
+    sector-key alignment pick a minimum among values that tie, or nearly
+    tie, for sparse descriptors.  A float32 sum breaks such ties by its
+    order of adds, which differs between the card and the CPU, and between
+    both and XLA; in float64 the sums of float32 terms are all but exact,
+    so the pick is the exact arithmetic's on every device, which XLA's
+    float32 sums also give wherever their rounding is below the gap."""
+    return halving_sum(x.to(torch.float64))
+
+
+def _mean_last(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the last axis, the same bits on every device: the sum
+    (``_ordered_sum``, rounded once to float32) times the float32 reciprocal
+    of the count, as XLA computes ``jnp.mean``.  ``torch.mean`` divides on
+    the CPU and multiplies by the reciprocal on the card, an ulp apart, and
+    the key searches turn such ulps into other candidates."""
+    inv = torch.full((), 1.0 / x.shape[-1], dtype=x.dtype, device=x.device)
+    return _ordered_sum(x).to(x.dtype) * inv
+
+
 def ring_key(desc: torch.Tensor) -> torch.Tensor:
     """Rotation-invariant row means."""
-    return torch.mean(desc, dim=-1)
+    return _mean_last(desc)
 
 
 def sector_key(desc: torch.Tensor) -> torch.Tensor:
     """Column means."""
-    return torch.mean(desc, dim=-2)
+    return _mean_last(desc.transpose(-1, -2))
 
 
 def _normalize_columns(desc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -155,6 +185,12 @@ def _best_shift(dist: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.clamp(torch.min(dist, dim=-1).values, min=0.0), torch.argmin(dist, dim=-1)
 
 
+def _pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` for a 0-d index tensor, on the device: ``x[i]`` itself would
+    read ``i`` back to the host."""
+    return torch.gather(x, 0, i.reshape(1))[0]
+
+
 def sc_distance_all_shifts(query: torch.Tensor, bank: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Best distance over all shifts: (dist (N,), argmin shift (N,))."""
@@ -166,11 +202,11 @@ def _ratio_window(dist: torch.Tensor, query: torch.Tensor, bank: torch.Tensor,
     """The best of ``dist`` (..., N, S) inside the sector-key-aligned window
     of each row; query (..., R, S), bank (..., N, R, S)."""
     ns = query.shape[-1]
-    vq = sector_key(query)                                          # (..., S)
-    vb = sector_key(bank)                                           # (..., N, S)
+    vq = sector_key(query).to(torch.float64)                        # (..., S)
+    vb = sector_key(bank).to(torch.float64)                         # (..., N, S)
     col = _roll_index(ns, query.device)
-    corr = vb @ vq[..., col].transpose(-1, -2)                      # (..., N, Z)
-    align = torch.argmin(torch.sum(vb * vb, dim=-1)[..., None] - 2.0 * corr, dim=-1)
+    corr = _ordered_sum(vb[..., :, None, :] * vq[..., col][..., None, :, :])   # (..., N, Z)
+    align = torch.argmin(_ordered_sum(vb * vb)[..., None] - 2.0 * corr, dim=-1)
     radius = max(1, int(round(0.5 * cfg.search_ratio * ns)))
     shifts = torch.arange(ns, device=query.device)
     circ = torch.abs((shifts - align[..., None] + ns // 2) % ns - ns // 2)
@@ -229,7 +265,7 @@ def ringkey_two_stage_best(query_desc: torch.Tensor, bank_desc: torch.Tensor,
     rows, then shift-distance scoring on those candidates only.  Returns
     (best row index, best distance (+inf if nothing searchable), best shift)."""
     qkey = ring_key(query_desc)
-    d2 = torch.sum((bank_ring_keys - qkey[None, :]) ** 2, dim=-1)
+    d2 = _ordered_sum((bank_ring_keys.to(torch.float64) - qkey[None, :].to(torch.float64)) ** 2)
     d2 = torch.where(searchable, d2, torch.full_like(d2, float("inf")))
     _, cand = top_k(-d2, k)
     cand_desc = bank_desc[cand]
@@ -239,7 +275,7 @@ def ringkey_two_stage_best(query_desc: torch.Tensor, bank_desc: torch.Tensor,
         dist, shift = sc_distance_all_shifts(query_desc, cand_desc)
     dist = torch.where(torch.isfinite(d2[cand]), dist, torch.full_like(dist, float("inf")))
     j = torch.argmin(dist)
-    return cand[j], dist[j], shift[j]
+    return _pick(cand, j), _pick(dist, j), _pick(shift, j)
 
 
 class LoopCandidate(NamedTuple):
@@ -271,7 +307,7 @@ def detect_loop(query_desc: torch.Tensor, bank_desc: torch.Tensor, num_valid: in
     searchable = torch.arange(dist.shape[0], device=bank_desc.device) < bound
     dist = torch.where(searchable, dist, torch.full_like(dist, float("inf")))
     best = torch.argmin(dist)
-    return _candidate(best, dist[best], shift[best], cfg)
+    return _candidate(best, _pick(dist, best), _pick(shift, best), cfg)
 
 
 def detect_loop_ringkey(query_desc: torch.Tensor, bank_desc: torch.Tensor,
@@ -321,8 +357,8 @@ def ringkey_two_stage_best_multi(queries: torch.Tensor, bank_desc: torch.Tensor,
     ``k`` rows, so the shift distances are one K2-T call on a (T, k, R, S)
     bank, and the ratio window (``search_ratio``) is taken per slot.
     Returns (best row index, best distance, best shift), each (T,)."""
-    qkey = ring_key(queries)                                        # (T, R)
-    d2 = torch.sum((bank_ring_keys[None] - qkey[:, None, :]) ** 2, dim=-1)   # (T, N)
+    qkey = ring_key(queries).to(torch.float64)                      # (T, R)
+    d2 = _ordered_sum((bank_ring_keys[None].to(torch.float64) - qkey[:, None, :]) ** 2)  # (T, N)
     d2 = torch.where(searchable, d2, torch.full_like(d2, float("inf")))
     _, cand = top_k(-d2, k)                                         # (T, k)
     cand_desc = bank_desc[cand]                                     # (T, k, R, S)
@@ -352,3 +388,100 @@ def detect_loop_ringkey_multi(queries: torch.Tensor, bank_desc: torch.Tensor,
     searchable = torch.arange(bank_desc.shape[0], device=dev)[None, :] < bounds[:, None]
     return _candidate(*ringkey_two_stage_best_multi(
         queries, bank_desc, bank_ring_keys, searchable, cfg.num_candidates, cfg), cfg)
+
+
+# -- the multi-session API and the reference's SCManager interface ---------
+
+def detect_loop_between_sessions(query_desc: torch.Tensor, other_bank_desc: torch.Tensor,
+                                 other_num_valid: int, cfg: ScanContextConfig
+                                 ) -> LoopCandidate:
+    """Query one session's descriptor against another session's bank (no
+    recency exclusion: the sessions are distinct trajectories).
+
+    Only the first other_num_valid rows are scored, one row when the bank
+    is empty, so the candidate (idx -1, dist +inf, yaw of row 0's best shift
+    at other_num_valid = 0) is the one the full padded bank gives.  One K2
+    launch on the card."""
+    n = max(other_num_valid, 1)
+    dist, shift = sc_distance_all_shifts(query_desc, other_bank_desc[:n])
+    searchable = torch.arange(dist.shape[0], device=other_bank_desc.device) < other_num_valid
+    dist = torch.where(searchable, dist, torch.full_like(dist, float("inf")))
+    best = torch.argmin(dist)
+    return _candidate(best, _pick(dist, best), _pick(shift, best), cfg)
+
+
+class ScanContextManager:
+    """The reference's SCManager interface (Scancontext.h:57-122, method
+    names kept) over one padded bank on the device.
+
+    ``bank`` (capacity, R, S) and ``ring_keys`` (capacity, R) stay on
+    ``device`` (the card unless the caller names the CPU); ``num`` is a host
+    int.  An insert writes its row in place and reads nothing back; a detect
+    is one K2 launch on the card (``detect_loop`` in "full" mode,
+    ``detect_loop_ringkey`` in "ringkey" mode) and one read of the (index,
+    yaw) pair the interface returns."""
+
+    def __init__(self, cfg: ScanContextConfig, capacity: int = 4096,
+                 device: torch.device | str = DEFAULT_DEVICE):
+        self.cfg = cfg
+        self.capacity = capacity
+        self.device = resolve_device(device)
+        self.bank = torch.zeros((capacity, cfg.num_ring, cfg.num_sector),
+                                dtype=torch.float32, device=self.device)
+        self.ring_keys = torch.zeros((capacity, cfg.num_ring), dtype=torch.float32,
+                                     device=self.device)
+        self.num = 0
+
+    def setSCdistThres(self, thres: float) -> None:  # noqa: N802 (the reference's name)
+        self.cfg = dataclasses.replace(self.cfg, sc_dist_thres=thres)
+
+    def _tensor(self, x, dtype: torch.dtype) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    def _append(self, desc: torch.Tensor) -> None:
+        if self.num >= self.capacity:
+            raise RuntimeError("ScanContext bank capacity exceeded")
+        self.bank[self.num] = desc
+        self.ring_keys[self.num] = ring_key(desc)
+        self.num += 1
+
+    def makeAndSaveScancontextAndKeys(self, xy, z=None, valid=None  # noqa: N802
+                                      ) -> torch.Tensor:
+        """Build the descriptor of a (K, 2) cloud (heights ``z`` default 0,
+        every point valid by default) and append it with its ring key."""
+        xy = self._tensor(xy, torch.float32)
+        k = xy.shape[0]
+        z = (torch.zeros(k, device=self.device) if z is None
+             else self._tensor(z, torch.float32))
+        valid = (torch.ones(k, dtype=torch.bool, device=self.device) if valid is None
+                 else self._tensor(valid, torch.bool))
+        desc = make_scancontext(xy, z, valid, self.cfg)
+        self._append(desc)
+        return desc
+
+    def saveScancontextAndKeys(self, desc) -> None:  # noqa: N802
+        """Append an externally built (R, S) descriptor and its ring key."""
+        self._append(self._tensor(desc, torch.float32))
+
+    @staticmethod
+    def _read(res: LoopCandidate) -> Tuple[int, float]:
+        idx, yaw = torch.stack([res.idx.to(torch.float64), res.yaw.to(torch.float64)]).tolist()
+        return int(idx), yaw
+
+    def detectLoopClosureID(self) -> Tuple[int, float]:  # noqa: N802
+        """Query the newest descriptor against the bank: (index, yaw), index
+        -1 when there is no loop, (-1, 0.0) on an empty bank."""
+        if self.num == 0:
+            return -1, 0.0
+        query = self.bank[self.num - 1]
+        if self.cfg.search_mode == "ringkey":
+            res = detect_loop_ringkey(query, self.bank, self.ring_keys, self.num, self.cfg)
+        else:
+            res = detect_loop(query, self.bank, self.num, self.cfg)
+        return self._read(res)
+
+    def detectLoopClosureIDBetweenSession(self, query_desc  # noqa: N802
+                                          ) -> Tuple[int, float]:
+        """Query another session's (R, S) descriptor against this bank."""
+        return self._read(detect_loop_between_sessions(
+            self._tensor(query_desc, torch.float32), self.bank, self.num, self.cfg))

@@ -22,6 +22,9 @@ A state without ``"odometry"`` (a checkpoint file of either package)
 resumes as the JAX engine does: the first scan after the load re-seeds the
 odometry.  ``utils.checkpoint`` reads and writes the ``.npz`` file.
 
+``scmanager_state_to_numpy`` / ``load_scmanager_state`` do the same for a
+``ScanContextManager``: ``{"bank", "ring_keys", "num"}``.
+
 The configuration needs no conversion: the port's ``config.SlamConfig``
 has the JAX package's fields and defaults, and ``configs/*.json`` load alike
 in both.
@@ -38,6 +41,7 @@ from navtech_radar_slam_torch.models.odometry import RadarOdometry, ScanFeatures
 
 if TYPE_CHECKING:
     from navtech_radar_slam_torch.models.slam import SlamEngine
+    from navtech_radar_slam_torch.ops.scancontext import ScanContextManager
 
 #: graph arrays, by checkpoint key
 _GRAPH_KEYS = ("poses", "odom_meas", "odom_valid", "loop_i", "loop_j", "loop_meas",
@@ -180,3 +184,28 @@ def load_slam_state(eng: "SlamEngine", d: Dict) -> None:
     eng._coast_dev = None
     eng._cur_pose = None
     eng._cur_pose_dev = None
+
+
+def scmanager_state_to_numpy(mgr: "ScanContextManager") -> Dict:
+    """A ``ScanContextManager``'s bank, ring keys and count as numpy."""
+    return {"bank": mgr.bank.cpu().numpy(), "ring_keys": mgr.ring_keys.cpu().numpy(),
+            "num": mgr.num}
+
+
+def load_scmanager_state(mgr: "ScanContextManager", d: Dict) -> None:
+    """Restore a manager's state given as numpy (``scmanager_state_to_numpy``'s
+    layout, or a JAX manager's ``bank``, ``ring_keys`` and ``num`` through
+    ``np.asarray``).  The arrays must have the manager's capacity and
+    descriptor shape."""
+    bank = np.asarray(d["bank"], np.float32)
+    keys = np.asarray(d["ring_keys"], np.float32)
+    num = int(d["num"])
+    if bank.shape != tuple(mgr.bank.shape) or keys.shape != tuple(mgr.ring_keys.shape):
+        raise ValueError(f"load_scmanager_state: bank {bank.shape} and ring keys "
+                         f"{keys.shape}, the manager holds {tuple(mgr.bank.shape)} and "
+                         f"{tuple(mgr.ring_keys.shape)}")
+    if not 0 <= num <= mgr.capacity:
+        raise ValueError(f"load_scmanager_state: num {num} outside 0 .. {mgr.capacity}")
+    mgr.bank = torch.tensor(bank, device=mgr.device)
+    mgr.ring_keys = torch.tensor(keys, device=mgr.device)
+    mgr.num = num

@@ -152,6 +152,32 @@ def test_deskew_and_pair_registration_match_jax(scans, doppler):
     assert abs(float(tr.rel_pose[2]) - float(jr.rel_pose[2])) < 1e-4
 
 
+def test_make_odometry_step_matches_jax(scans):
+    """The bound step against JAX's ``make_odometry_step`` on one pair from
+    the same carry (the port's extraction of scan 0, moved to JAX field by
+    field), the ground-truth increment as the twist: the same ok and
+    points, rel_pose within 1e-3 m / 1e-4 rad; an input on another device
+    raises."""
+    gt, sc = scans
+    az = todo.default_azimuths(CFG)
+    prev = todo.extract_scan_features(t(sc[0]), t(az), CFG)
+    jprev = jodo.ScanFeatures(**{k: jnp.asarray(np_(getattr(prev, k))) for k in SCAN_FIELDS})
+    twist = tgeo.se2_between_np(gt[0], gt[1]).astype(np.float32)
+    jcurr, jres, jout = jodo.make_odometry_step(CFG)(jnp.asarray(sc[1]), jnp.asarray(az),
+                                                     jprev, jnp.asarray(twist))
+    step = todo.make_odometry_step(CFG, device="cpu")
+    curr, res, out = step(t(sc[1]), t(az), prev, t(twist))
+    assert bool(res.ok) == bool(jres.ok) is True
+    got, want = np_(res.rel_pose), np.asarray(jres.rel_pose)
+    np.testing.assert_allclose(got[:2], want[:2], rtol=0, atol=1e-3)
+    assert abs(got[2] - want[2]) < 1e-4
+    np.testing.assert_array_equal(np_(curr.valid), np.asarray(jcurr.valid))
+    np.testing.assert_allclose(np_(curr.xy), np.asarray(jcurr.xy), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(np_(out.xy), np.asarray(jout.xy), rtol=0, atol=1e-3)
+    with pytest.raises(ValueError, match="twist is on meta"):
+        step(t(sc[1]), t(az), prev, torch.zeros(3, device="meta"))
+
+
 def test_odometry_sequence_matches_stepwise(scans):
     """The streamed chunk loop gives the per-scan increments of the host
     accumulator (same arithmetic, so 1e-6)."""

@@ -8,16 +8,20 @@ detectors give the same index, found flag and yaw."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from navtech_radar_slam_tpu.config import ScanContextConfig
+from navtech_radar_slam_tpu.config import RadarConfig, ScanContextConfig
+from navtech_radar_slam_tpu.data import RadarSimulator
 from navtech_radar_slam_tpu.ops import scancontext as jsc
 from navtech_radar_slam_tpu.ops.pallas import sc_shift_distances_pallas
+from navtech_radar_slam_torch import state
 from navtech_radar_slam_torch.ops import scancontext as tsc
 from navtech_radar_slam_torch.ops.kernels import sc_corr
+from navtech_radar_slam_torch.utils.ordered import halving_sum
 from torch_parity_util import cuda_device, np_, one_torch_thread, t  # noqa: F401 (fixtures)
 
 CFG = ScanContextConfig()
@@ -326,3 +330,321 @@ def test_k2t_per_slot_banks_unchanged_on_cuda(cuda_device):  # noqa: F811
         assert torch.equal(got[s], sc_corr.sc_shift_distances_cuda(queries[s], bank[s])), s
     with pytest.raises(ValueError, match="qgroup"):
         sc_corr._launch_multi(queries, bank, 2)
+
+
+# -- the multi-session API and the SCManager interface ---------------------
+
+def _plain_desc(xy):
+    n = len(xy)
+    return np.asarray(jsc.make_scancontext(jnp.asarray(xy), jnp.zeros(n),
+                                           jnp.ones(n, bool), CFG))
+
+
+@pytest.mark.parametrize("num_valid", [0, 1, 10, 16])
+def test_detect_loop_between_sessions_matches_jax(num_valid, monkeypatch):
+    """``test_between_sessions``'s setting: ten live rows of a 16-row bank,
+    the query a rotated revisit of row 8.  Only the first max(num_valid, 1)
+    rows are scored; the candidate is JAX's, which scores the whole bank
+    (at 0: idx -1, dist +inf, the yaw of row 0's best shift)."""
+    bank = np.zeros((16, CFG.num_ring, CFG.num_sector), np.float32)
+    bank[:10] = np.stack([_plain_desc(_cloud(200 + i, 400)) for i in range(10)])
+    query = _plain_desc(_cloud(208, 400, rot=0.2))
+    want = jsc.detect_loop_between_sessions(jnp.asarray(query), jnp.asarray(bank),
+                                            jnp.asarray(num_valid), CFG)
+    scored = []
+    all_shifts = tsc.sc_distance_all_shifts
+
+    def recording(q, b):
+        scored.append(b.shape[0])
+        return all_shifts(q, b)
+
+    monkeypatch.setattr(tsc, "sc_distance_all_shifts", recording)
+    got = tsc.detect_loop_between_sessions(t(query), t(bank), num_valid, CFG)
+    _same_candidate(got, want)
+    assert scored == [max(num_valid, 1)]
+    assert bool(got.found) == (num_valid > 8) and (int(got.idx) == 8) == (num_valid > 8)
+    if num_valid == 0:
+        assert float(got.dist) == float(want.dist) == float("inf")
+
+
+def _port_desc(xy):
+    """The port's descriptor of a cloud on the CPU (``_plain_desc``'s twin,
+    with no JAX call)."""
+    n = len(xy)
+    return np_(tsc.make_scancontext(t(xy), torch.zeros(n), torch.ones(n, dtype=torch.bool), CFG))
+
+
+def _mode_cfg(mode):
+    return dataclasses.replace(CFG, search_mode=mode.split("_")[0],
+                               tree_making_period=1 if mode == "ringkey_fresh" else 30)
+
+
+def _managers(mode):
+    cfg = _mode_cfg(mode)
+    return (cfg, jsc.ScanContextManager(cfg, capacity=64),
+            tsc.ScanContextManager(cfg, capacity=64, device="cpu"))
+
+
+@pytest.mark.parametrize("mode,points", [
+    pytest.param("full", 400, id="full"),
+    pytest.param("ringkey", 400, id="ringkey"),
+    pytest.param("ringkey_fresh", 400, id="ringkey_fresh"),
+    pytest.param("ringkey", 60, id="ringkey-60"),
+    pytest.param("ringkey_fresh", 60, id="ringkey_fresh-60"),
+])
+def test_scmanager_matches_jax(mode, points):
+    """``test_scmanager_api_parity``'s 35 + 1 clouds (35 scenes and a rotated
+    revisit of scene 2) into both managers: a
+    detect after every insert from the 31st gives the same (index, yaw);
+    the banks agree; a port manager loaded from the JAX manager's arrays
+    answers alike; the between-session query, the threshold setter and the
+    capacity limit behave as JAX's.  Sparse clouds (60 points) make ring
+    and sector keys that tie exactly, where XLA's float32 sums and the
+    port's float64 ones may pick another of the tied candidates or
+    alignments: there a detect may differ, and both packages' answers must
+    then be exact-arithmetic optima (``_a_tie_broken_apart``)."""
+    cfg, jm, tm = _managers(mode)
+    clouds = [_cloud(300 + i, points) for i in range(35)]
+    clouds.append(_cloud(302, points, rot=0.5))
+    for i, c in enumerate(clouds):
+        want = np.asarray(jm.makeAndSaveScancontextAndKeys(jnp.asarray(c)))
+        np.testing.assert_array_equal(np_(tm.makeAndSaveScancontextAndKeys(c)), want)
+        if i >= 30:
+            got, want = tm.detectLoopClosureID(), jm.detectLoopClosureID()
+            if got != pytest.approx(want, abs=1e-6):
+                assert points == 60 and mode != "full", (i, got, want)
+                _a_tie_broken_apart(tm, jm, got, want)
+    got = tm.detectLoopClosureID()
+    assert tm.num == jm.num == 36
+    if mode != "ringkey":       # ring-key staleness hides row 2 at 36 inserts
+        assert got[0] == 2 and abs(got[1] - 0.5) < 2 * np.pi / cfg.num_sector + 1e-6
+    np.testing.assert_allclose(np_(tm.bank), np.asarray(jm.bank), atol=SC_ATOL)
+    np.testing.assert_allclose(np_(tm.ring_keys), np.asarray(jm.ring_keys), atol=SC_ATOL)
+
+    loaded = tsc.ScanContextManager(cfg, capacity=64, device="cpu")
+    state.load_scmanager_state(loaded, {"bank": np.asarray(jm.bank),
+                                        "ring_keys": np.asarray(jm.ring_keys), "num": jm.num})
+    assert loaded.detectLoopClosureID() == pytest.approx(jm.detectLoopClosureID(), abs=1e-6)
+    back = state.scmanager_state_to_numpy(loaded)
+    np.testing.assert_array_equal(back["bank"], np.asarray(jm.bank))
+    assert back["num"] == 36
+
+    jo, to = jsc.ScanContextManager(cfg, capacity=16), tsc.ScanContextManager(
+        cfg, capacity=16, device="cpu")
+    for c in clouds[:8]:
+        jo.saveScancontextAndKeys(_plain_desc(c))
+        to.saveScancontextAndKeys(_plain_desc(c))
+    q = _plain_desc(_cloud(305, points, rot=-0.3))
+    want = jo.detectLoopClosureIDBetweenSession(jnp.asarray(q))
+    assert to.detectLoopClosureIDBetweenSession(q) == pytest.approx(want, abs=1e-6)
+    assert want[0] == 5
+
+    jm.setSCdistThres(0.0)
+    tm.setSCdistThres(0.0)
+    assert tm.detectLoopClosureID()[0] == jm.detectLoopClosureID()[0] == -1
+
+
+def _tie_prone_bank(kind):
+    """Descriptors whose keys tie: the 60-point clouds of
+    ``test_scmanager_matches_jax``, or the simulator's landmarks seen from
+    120 seeded poses (~250 points each, 0 / 2 occupancy, as in
+    chip_smoke.py's manager phase)."""
+    if kind == "sparse-60":
+        clouds = [_cloud(300 + i, 60) for i in range(35)] + [_cloud(302, 60, rot=0.5)]
+    else:
+        sim = RadarSimulator(RadarConfig())
+        rng = np.random.default_rng(7)
+        poses = np.column_stack([rng.uniform(-60, 60, 120), rng.uniform(-60, 60, 120),
+                                 rng.uniform(-np.pi, np.pi, 120)])
+        clouds = []
+        for pose in poses:
+            r, b, _ = sim.visible_landmarks(pose)
+            clouds.append(np.column_stack([r * np.cos(b), r * np.sin(b)]).astype(np.float32))
+    return np.stack([np_(tsc.make_scancontext(t(c), torch.zeros(len(c)),
+                                              torch.ones(len(c), dtype=torch.bool), CFG))
+                     for c in clouds])
+
+
+def _an_exact_optimum(descs, q, searchable, dist, idx, shift, best, k, cfg):
+    """Whether (idx, shift, best) is what the two-stage ring-key search
+    gives in exact arithmetic with its ties broken some way: keys and
+    sector-key costs in float64 from the 0 / 2 descriptors (exact up to
+    1e-9), ``dist`` the side's own (N, S) shift distances, equal within
+    SC_ATOL.  idx must be among the k nearest ring keys (or tie with the
+    k-th), ``shift`` the window minimum of an alignment that ties for the
+    best, and ``best`` no worse than any row surely among the candidates."""
+    d = descs.astype(np.float64)
+    d2 = np.where(searchable, ((d.mean(-1) - d[q].mean(-1)) ** 2).sum(-1), np.inf)
+    cut = np.sort(d2)[k - 1]
+    sure, maybe = searchable & (d2 < cut - 1e-9), searchable & (d2 <= cut + 1e-9)
+    ns = d.shape[-1]
+    vb, vq = d.mean(-2), d[q].mean(-2)
+    col = (np.arange(ns)[:, None] + np.arange(ns)[None, :]) % ns
+    cost = (vb * vb).sum(-1)[:, None] - 2.0 * vb @ vq[col].T          # (N, Z)
+    radius = max(1, int(round(0.5 * cfg.search_ratio * ns)))
+    circ = np.abs((np.arange(ns)[None, :] - np.arange(ns)[:, None] + ns // 2) % ns - ns // 2)
+    window = circ <= radius                                           # (Z, S)
+
+    def window_mins(r):     # the row's window minimum at each alignment tying for best
+        aligns = np.flatnonzero(cost[r] <= cost[r].min() + 1e-9)
+        return aligns, [dist[r][window[z]].min() for z in aligns]
+
+    if not maybe[idx] or abs(best - max(dist[idx, shift], 0.0)) > SC_ATOL:
+        return False
+    aligns, mins = window_mins(idx)
+    if not any(window[z, shift] and dist[idx, shift] <= m + SC_ATOL
+               for z, m in zip(aligns, mins)):
+        return False
+    return all(best <= max(window_mins(r)[1]) + SC_ATOL for r in np.flatnonzero(sure))
+
+
+def _a_tie_broken_apart(tm, jm, got, want):
+    """The newest ring-key detect of two managers over one bank, where their
+    (index, yaw) differ: each is its package's two-stage answer, and both
+    answers are exact-arithmetic optima (``_an_exact_optimum``)."""
+    cfg, k, q = tm.cfg, tm.cfg.num_candidates, tm.num - 1
+    descs = np_(tm.bank)
+    np.testing.assert_array_equal(descs, np.asarray(jm.bank))
+    searchable = np.arange(tm.capacity) < tsc.ringkey_searchable_bound(tm.num, cfg)
+    gi, gd, gs = tsc.ringkey_two_stage_best(tm.bank[q], tm.bank, tm.ring_keys,
+                                            t(searchable), k, cfg)
+    wi, wd, ws = jsc.ringkey_two_stage_best(jm.bank[q], jm.bank, jm.ring_keys,
+                                            jnp.asarray(searchable), k, cfg)
+    for (i, d, s), answer, dist in (
+            ((gi, gd, gs), got, np_(tsc.sc_shift_distance_matrix(tm.bank[q], tm.bank))),
+            ((wi, wd, ws), want, np.asarray(jsc.sc_shift_distance_matrix(jm.bank[q], jm.bank)))):
+        i, d, s = int(i), float(d), int(s)
+        yaw = float(tsc.shift_to_yaw(torch.tensor(s), cfg))
+        assert answer == pytest.approx((i if d < cfg.sc_dist_thres else -1, yaw), abs=1e-6)
+        assert _an_exact_optimum(descs, q, searchable, dist, i, s, d, k, cfg), answer
+
+
+@pytest.mark.parametrize("kind", ["sparse-60", "landmarks"])
+def test_ringkey_two_stage_best_multi_matches_jax(kind):
+    """The port's T-slot two-stage ring-key search against JAX's
+    ``ringkey_two_stage_best`` one slot at a time, slot t querying row
+    30 + t over the rows before it.  Every answer of either package is an
+    exact-arithmetic optimum of the search, a tie broken some way
+    (``_an_exact_optimum``).  On the 60-point clouds the answers are equal.
+    On the landmark clouds exact ties among ring-key distances (at the k-th
+    candidate) and among sector-key alignments are common, and XLA's float32
+    reductions and einsum break some of them otherwise than the port's
+    ``halving_sum``, whose order is the same on the card and the CPU."""
+    cfg, k = CFG, CFG.num_candidates
+    descs = _tie_prone_bank(kind)
+    keys = np_(tsc.ring_key(t(descs)))
+    slots = np.arange(30, len(descs))
+    searchable = np.arange(len(descs))[None, :] < slots[:, None]
+    gi, gd, gs = map(np_, tsc.ringkey_two_stage_best_multi(
+        t(descs[slots]), t(descs), t(keys), t(searchable), k, cfg))
+    one = jax.jit(lambda q, s: jsc.ringkey_two_stage_best(q, jnp.asarray(descs),
+                                                          jnp.asarray(keys), s, k, cfg))
+    want = [tuple(np.asarray(x) for x in one(jnp.asarray(descs[q]), jnp.asarray(s)))
+            for q, s in zip(slots, searchable)]
+    jdist = np.asarray(jax.jit(jax.vmap(jsc.sc_shift_distance_matrix, in_axes=(0, None)))(
+        jnp.asarray(descs[slots]), jnp.asarray(descs)))
+    gdist = np_(tsc.sc_shift_distance_matrix_multi(t(descs[slots]), t(descs)))
+    differing = 0
+    for j, q in enumerate(slots):
+        wi, wd, ws = want[j]
+        assert _an_exact_optimum(descs, q, searchable[j], gdist[j], gi[j], gs[j], gd[j], k,
+                                 cfg), (q, "port")
+        assert _an_exact_optimum(descs, q, searchable[j], jdist[j], int(wi), int(ws),
+                                 float(wd), k, cfg), (q, "jax")
+        differing += (gi[j], gs[j]) != (int(wi), int(ws)) or abs(gd[j] - float(wd)) > SC_ATOL
+    assert differing == 0 if kind == "sparse-60" else differing > 0
+
+
+def test_scmanager_empty_capacity_and_state_checks():
+    """An empty bank gives (-1, 0.0); a full one refuses both inserts with
+    JAX's error; the state loader refuses another capacity."""
+    cfg = CFG
+    jm = jsc.ScanContextManager(cfg, capacity=2)
+    tm = tsc.ScanContextManager(cfg, capacity=2, device="cpu")
+    assert tm.detectLoopClosureID() == jm.detectLoopClosureID() == (-1, 0.0)
+    for c in (_cloud(1, 400), _cloud(2, 400)):
+        jm.makeAndSaveScancontextAndKeys(jnp.asarray(c))
+        tm.makeAndSaveScancontextAndKeys(c)
+    for mgr, xy in ((jm, jnp.asarray(_cloud(3, 400))), (tm, _cloud(3, 400))):
+        with pytest.raises(RuntimeError, match="capacity exceeded"):
+            mgr.makeAndSaveScancontextAndKeys(xy)
+        with pytest.raises(RuntimeError, match="capacity exceeded"):
+            mgr.saveScancontextAndKeys(np.zeros((cfg.num_ring, cfg.num_sector), np.float32))
+    assert tm.num == jm.num == 2
+    big = tsc.ScanContextManager(cfg, capacity=4, device="cpu")
+    with pytest.raises(ValueError, match="capacity|holds"):
+        state.load_scmanager_state(big, state.scmanager_state_to_numpy(tm))
+
+
+def test_scmanager_runs_on_the_card_by_default():
+    """Without ``device=`` the manager is on the card: it raises where there
+    is none."""
+    if torch.cuda.is_available():
+        assert tsc.ScanContextManager(CFG, capacity=4).bank.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tsc.ScanContextManager(CFG, capacity=4)
+
+
+def test_keys_are_exact_means():
+    """Ring and sector keys of occupancy descriptors (values 0 and 2: exact
+    sums) are the sum times the float32 reciprocal of the count, JAX's
+    means bit for bit, for one descriptor and a batch alike; the keys, the
+    ring-key d2 and the sector-key alignment sum in float64 by
+    ``halving_sum``, whose adds come in one order fixed by the length alone
+    (the same bits on every device, a row alone as in a batch)."""
+    descs = _descs([_cloud(i) for i in range(6)])
+    rk, sk = np_(tsc.ring_key(t(descs))), np_(tsc.sector_key(t(descs)))
+    np.testing.assert_array_equal(rk, descs.sum(-1) * np.float32(1 / CFG.num_sector))
+    np.testing.assert_array_equal(sk, descs.sum(-2) * np.float32(1 / CFG.num_ring))
+    np.testing.assert_array_equal(rk, np.asarray(jsc.ring_key(jnp.asarray(descs))))
+    np.testing.assert_array_equal(sk, np.asarray(jsc.sector_key(jnp.asarray(descs))))
+    np.testing.assert_array_equal(np_(tsc.ring_key(t(descs[3]))), rk[3])
+    x = np.random.default_rng(0).random((3, 37), dtype=np.float32)
+    want = np.pad(x, ((0, 0), (0, 64 - 37)))
+    while want.shape[-1] > 1:
+        half = want.shape[-1] // 2
+        want = want[:, :half] + want[:, half:]
+    np.testing.assert_array_equal(np_(halving_sum(t(x))), want[:, 0])
+    np.testing.assert_array_equal(np_(halving_sum(t(x[1]))), want[1, 0])
+    x = x.astype(np.float64)
+    np.testing.assert_allclose(np_(tsc._ordered_sum(t(x))), x.sum(-1), rtol=1e-15)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,points", [("full", 400), ("ringkey_fresh", 400),
+                                         ("ringkey", 60), ("ringkey_fresh", 60)])
+def test_scmanager_on_cuda_matches_cpu(mode, points, cuda_device):  # noqa: F811
+    """The manager on the card against the one on the CPU: the same (index,
+    yaw) at every detect, one K2 launch a detect and none an insert, the
+    same between-session answers (one K2 launch each).  Sparse clouds (60
+    points) make keys that tie exactly, which a float32 reduction broke
+    differently on the card and the CPU."""
+    cfg = _mode_cfg(mode)
+    cm = tsc.ScanContextManager(cfg, capacity=64, device="cpu")
+    gm = tsc.ScanContextManager(cfg, capacity=64, device=cuda_device)
+    clouds = [_cloud(300 + i, points) for i in range(35)]
+    clouds.append(_cloud(302, points, rot=0.5))
+    for i, c in enumerate(clouds):
+        cm.makeAndSaveScancontextAndKeys(c)
+        before = sc_corr.launch_count
+        gm.makeAndSaveScancontextAndKeys(t(c, cuda_device))
+        assert sc_corr.launch_count == before
+        if i >= 30:
+            want = cm.detectLoopClosureID()
+            assert gm.detectLoopClosureID() == pytest.approx(want, abs=1e-6), i
+            assert sc_corr.launch_count == before + 1
+    assert gm.detectLoopClosureID()[0] == (2 if mode != "ringkey" else -1)
+    np.testing.assert_allclose(np_(gm.bank), np_(cm.bank), atol=SC_ATOL)
+    for k, phi in ((5, -0.3), (20, 0.8)):
+        q = _port_desc(_cloud(300 + k, points, rot=phi))
+        before = sc_corr.launch_count
+        got = gm.detectLoopClosureIDBetweenSession(t(q, cuda_device))
+        assert sc_corr.launch_count == before + 1
+        assert got == pytest.approx(cm.detectLoopClosureIDBetweenSession(q), abs=1e-6)
+    for n in (0, 1, 36, 64):
+        before = sc_corr.launch_count
+        got = tsc.detect_loop_between_sessions(gm.bank[0], gm.bank, n, cfg)
+        want = tsc.detect_loop_between_sessions(cm.bank[0], cm.bank, n, cfg)
+        assert sc_corr.launch_count == before + 1
+        _same_candidate(got, want)
