@@ -27,6 +27,7 @@ from navtech_radar_slam_torch.config import SlamConfig
 from navtech_radar_slam_torch.ops import cen2019, features, registration
 from navtech_radar_slam_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from navtech_radar_slam_torch.utils.geometry import se2_mul_np
+from navtech_radar_slam_torch.utils.profiling import span
 
 
 class ScanFeatures(NamedTuple):
@@ -143,22 +144,24 @@ def extract_scan_features(power: torch.Tensor, azimuths: torch.Tensor,
     the (NA, NBp // 2) 4-bit wire format; it is decoded on its device.
     ``ray_valid`` ((NA,) bool, optional): rays the sensor marked invalid are
     zeroed before extraction (zeroing a byte zeroes both packed nibbles)."""
-    if ray_valid is not None:
-        power = power * ray_valid.to(power.dtype)[:, None]
-    power = decode_power(power, packed)
-    feats = cen2019.extract_features(power.contiguous(), cfg.features, cfg.radar)
-    xy = cen2019.features_to_xy(feats, azimuths, cfg.radar)
-    desc = features.constellation_descriptors(xy, feats.power, feats.valid,
-                                              cfg.features)
-    ray_frac = (feats.azimuth_idx.to(torch.float32) + 0.5) / cfg.radar.num_azimuths
-    return ScanFeatures(
-        xy=xy,
-        desc=_masked_desc(desc, feats.valid),
-        power=feats.power,
-        valid=feats.valid,
-        ranges=torch.linalg.norm(xy, dim=-1),
-        ray_frac=ray_frac,
-    )
+    with span("odo.extract"):
+        if ray_valid is not None:
+            power = power * ray_valid.to(power.dtype)[:, None]
+        power = decode_power(power, packed)
+        feats = cen2019.extract_features(power.contiguous(), cfg.features, cfg.radar)
+        xy = cen2019.features_to_xy(feats, azimuths, cfg.radar)
+        with span("odo.descriptors"):
+            desc = features.constellation_descriptors(xy, feats.power, feats.valid,
+                                                      cfg.features)
+        ray_frac = (feats.azimuth_idx.to(torch.float32) + 0.5) / cfg.radar.num_azimuths
+        return ScanFeatures(
+            xy=xy,
+            desc=_masked_desc(desc, feats.valid),
+            power=feats.power,
+            valid=feats.valid,
+            ranges=torch.linalg.norm(xy, dim=-1),
+            ray_frac=ray_frac,
+        )
 
 
 #: most streams of one vmapped descriptor call
@@ -200,29 +203,32 @@ def extract_scan_features_batched(powers: torch.Tensor, azimuths: torch.Tensor,
     streams; ``ray_valids`` ((B, NA) bool, optional) each stream's valid
     rays.  One K1 x B launch on a CUDA batch and one exact top-k for the
     batch; the descriptors by ``_descriptors_batched``."""
-    if ray_valids is not None:
-        powers = powers * ray_valids.to(powers.dtype)[:, :, None]
-    powers = decode_power(powers, packed)
-    feats = cen2019.extract_features_batched(powers.contiguous(), cfg.features, cfg.radar)
-    xy = cen2019.features_to_xy(feats, azimuths, cfg.radar)
-    desc = _descriptors_batched(xy, feats.power, feats.valid, cfg)
-    ray_frac = (feats.azimuth_idx.to(torch.float32) + 0.5) / cfg.radar.num_azimuths
-    return ScanFeatures(
-        xy=xy,
-        desc=_masked_desc(desc, feats.valid),
-        power=feats.power,
-        valid=feats.valid,
-        ranges=torch.linalg.norm(xy, dim=-1),
-        ray_frac=ray_frac,
-    )
+    with span("odo.extract"):
+        if ray_valids is not None:
+            powers = powers * ray_valids.to(powers.dtype)[:, :, None]
+        powers = decode_power(powers, packed)
+        feats = cen2019.extract_features_batched(powers.contiguous(), cfg.features, cfg.radar)
+        xy = cen2019.features_to_xy(feats, azimuths, cfg.radar)
+        with span("odo.descriptors"):
+            desc = _descriptors_batched(xy, feats.power, feats.valid, cfg)
+        ray_frac = (feats.azimuth_idx.to(torch.float32) + 0.5) / cfg.radar.num_azimuths
+        return ScanFeatures(
+            xy=xy,
+            desc=_masked_desc(desc, feats.valid),
+            power=feats.power,
+            valid=feats.valid,
+            ranges=torch.linalg.norm(xy, dim=-1),
+            ray_frac=ray_frac,
+        )
 
 
 def match_feature_pair(prev: ScanFeatures, curr: ScanFeatures,
                        cfg: SlamConfig) -> features.MatchSet:
-    return features.match_features(
-        prev.desc, curr.desc, prev.xy, curr.xy, prev.valid, curr.valid,
-        cfg.features, prev.ray_frac, curr.ray_frac,
-    )
+    with span("odo.match"):
+        return features.match_features(
+            prev.desc, curr.desc, prev.xy, curr.xy, prev.valid, curr.valid,
+            cfg.features, prev.ray_frac, curr.ray_frac,
+        )
 
 
 def register_feature_pair(prev: ScanFeatures, curr: ScanFeatures,
@@ -240,21 +246,22 @@ def register_step(prev: ScanFeatures, curr: ScanFeatures, twist: torch.Tensor,
     With motion compensation on, match ONCE on raw descriptors, register for
     a seed twist, then de-skew the matched set with the twist estimate and
     re-register, twice.  One stream's tensors; ``torch.func.vmap`` of it is
-    the batched step's."""
-    matches = match_feature_pair(prev, curr, cfg)
-    res = registration.register_scans(matches, cfg.registration)
-    if not (cfg.features.motion_compensation
-            or cfg.features.doppler_compensation):
-        return res, curr
+    the batched step's (its spans open once per batched call)."""
+    with span("odo.register_step"):
+        matches = match_feature_pair(prev, curr, cfg)
+        res = registration.register_scans(matches, cfg.registration)
+        if not (cfg.features.motion_compensation
+                or cfg.features.doppler_compensation):
+            return res, curr
 
-    t = torch.where(res.ok, res.rel_pose, twist)
-    for _ in range(2):
-        res = registration.register_scans(deskew_matches(matches, t, cfg),
-                                          cfg.registration)
-        t = torch.where(res.ok, res.rel_pose, t)
-    # descriptors are not rebuilt: no downstream consumer reads curr_out.desc
-    xy = _deskew_xy(curr.xy, curr.ray_frac, t, cfg)
-    return res, curr._replace(xy=xy, ranges=torch.linalg.norm(xy, dim=-1))
+        t = torch.where(res.ok, res.rel_pose, twist)
+        for _ in range(2):
+            res = registration.register_scans(deskew_matches(matches, t, cfg),
+                                              cfg.registration)
+            t = torch.where(res.ok, res.rel_pose, t)
+        # descriptors are not rebuilt: no downstream consumer reads curr_out.desc
+        xy = _deskew_xy(curr.xy, curr.ray_frac, t, cfg)
+        return res, curr._replace(xy=xy, ranges=torch.linalg.norm(xy, dim=-1))
 
 
 def odometry_step(
@@ -269,9 +276,10 @@ def odometry_step(
     """One front-end step: extract the current scan, register it against the
     previous one (``register_step``).  Returns (raw carry, result, de-skewed
     features); the carry stays raw."""
-    curr = extract_scan_features(power, azimuths, cfg, ray_valid, packed)
-    res, curr_out = register_step(prev, curr, twist, cfg)
-    return curr, res, curr_out
+    with span("odo.step"):
+        curr = extract_scan_features(power, azimuths, cfg, ray_valid, packed)
+        res, curr_out = register_step(prev, curr, twist, cfg)
+        return curr, res, curr_out
 
 
 def _require_device(fn: str, dev: torch.device, prev: ScanFeatures, **named) -> None:
@@ -316,7 +324,9 @@ def make_batched_odometry_step(cfg: SlamConfig,
     under ``torch.func.vmap``, whose reductions are batch-invariant where a
     rounding difference could change a discrete choice
     (``registration.spectral_inlier_scores``).  The step reads nothing back
-    per stream; the exact top-k waits for the device once per batch.  Every
+    per stream; the host waits for the device three times per batch, at the
+    ``sync.*`` spans (the top-k's ``nonzero`` and ``bincount``, matching's
+    second-best).  Every
     input must be on ``device`` (the card unless the caller names the CPU);
     one on another device raises."""
     dev = resolve_device(device)
@@ -326,9 +336,10 @@ def make_batched_odometry_step(cfg: SlamConfig,
         _require_device("make_batched_odometry_step", dev, prev,
                         powers=powers, azimuths=azimuths, twists=twists,
                         ray_valids=ray_valids)
-        curr = extract_scan_features_batched(powers, azimuths, cfg, ray_valids, packed)
-        res, curr_out = pair(prev, curr, twists)
-        return curr, res, curr_out
+        with span("odo.step"):
+            curr = extract_scan_features_batched(powers, azimuths, cfg, ray_valids, packed)
+            res, curr_out = pair(prev, curr, twists)
+            return curr, res, curr_out
 
     return step
 

@@ -17,7 +17,7 @@ A batch of B scans (``extract_features_batched``, the counterpart of
 ``jax.vmap`` of the detector) has the same two implementations,
 ``cen2019_scores_batched`` and K1 x B (``cen_peaks.
 cen2019_scores_batched_cuda``, one launch), and one exact top-k for all B
-scans that waits for the device once per batch.
+scans that waits for the device twice per batch, not per scan.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from navtech_radar_slam_torch.config import FeatureConfig, RadarConfig
 from navtech_radar_slam_torch.ops.kernels import cen_peaks
+from navtech_radar_slam_torch.utils.profiling import span
 
 
 class FeatureSet(NamedTuple):
@@ -182,7 +183,8 @@ def cen2019_scores(power: torch.Tensor, fcfg: FeatureConfig,
 def _finalize_topk_scores_batched(scores: torch.Tensor, k: int) -> FeatureSet:
     """Exact top-k of each map of a (B, NA, NBp) batch, as (B, k) fields,
     with JAX's tie order (equal scores lowest flat index first) and one
-    ``nonzero`` (one wait for the device) for the whole batch.  Only the
+    ``nonzero`` for the whole batch (on the card the host waits for the
+    device there and in ``bincount``: the ``sync.*`` spans).  Only the
     finite entries are sorted: ``nonzero`` lists them by scan, then by flat
     index; a stable descending sort of their values, then a stable sort by
     scan, leaves each scan's entries in a segment of their own, ties in
@@ -194,11 +196,14 @@ def _finalize_topk_scores_batched(scores: torch.Tensor, k: int) -> FeatureSet:
     and is exact on the CPU; the port is always exact."""
     n_scans, _, nb = scores.shape
     flat = scores.reshape(n_scans, -1)
-    scan, idx = torch.nonzero(torch.isfinite(flat)).unbind(1)
+    finite = torch.isfinite(flat)
+    with span("sync.topk"):
+        scan, idx = torch.nonzero(finite).unbind(1)
     vals = flat[scan, idx]
     order = torch.sort(vals, descending=True, stable=True).indices
     order = order[torch.sort(scan[order], stable=True).indices]
-    counts = torch.bincount(scan, minlength=n_scans)
+    with span("sync.bincount"):   # on the card it reads its input's min and max
+        counts = torch.bincount(scan, minlength=n_scans)
     slot = torch.arange(k, device=scores.device)
     valid = slot[None, :] < counts[:, None]
     # a slot past its scan's segment reads the zero appended at the end

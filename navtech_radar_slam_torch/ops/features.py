@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from navtech_radar_slam_torch.config import FeatureConfig, RadarConfig
+from navtech_radar_slam_torch.utils.profiling import span
 
 
 def _radial_frame(xy: torch.Tensor):
@@ -218,7 +219,9 @@ def match_features(
     best_c = torch.max(C, dim=1).values
     # second-best for the ratio test
     C_wo = C.clone()
-    C_wo[rows, best_j] = neg
+    # under torch.func.vmap the scalar reaches the card by a copy that waits
+    with span("sync.second_best"):
+        C_wo[rows, best_j] = neg
     second_c = torch.max(C_wo, dim=1).values
     best_i_of_j = torch.argmax(C, dim=0)                 # (K,)
     mutual = best_i_of_j[best_j] == rows

@@ -20,6 +20,7 @@ import torch
 from navtech_radar_slam_torch.config import RegistrationConfig
 from navtech_radar_slam_torch.ops.features import MatchSet, top_k_stable
 from navtech_radar_slam_torch.utils.ordered import halving_sum
+from navtech_radar_slam_torch.utils.profiling import span
 
 
 class RegistrationResult(NamedTuple):
@@ -260,57 +261,59 @@ def anisotropic_refine(
 
 def register_scans(matches: MatchSet, cfg: RegistrationConfig) -> RegistrationResult:
     """Full ORORA-style pipeline on a padded MatchSet."""
-    M = matches.valid.shape[0]
-    scores = spectral_inlier_scores(matches, cfg)
-    # stable: correspondences with identical consistency rows score exactly
-    # alike, and the TIM ring below pairs consecutive selections, so the tie
-    # order decides the TIMs (JAX's top_k: lowest index first)
-    top_scores, top_idx = top_k_stable(scores, min(cfg.spectral_top_k, M))
-    sel_valid = matches.valid[top_idx] & (top_scores > 1e-6)
+    with span("odo.register"):
+        M = matches.valid.shape[0]
+        with span("odo.spectral"):
+            scores = spectral_inlier_scores(matches, cfg)
+        # stable: correspondences with identical consistency rows score exactly
+        # alike, and the TIM ring below pairs consecutive selections, so the tie
+        # order decides the TIMs (JAX's top_k: lowest index first)
+        top_scores, top_idx = top_k_stable(scores, min(cfg.spectral_top_k, M))
+        sel_valid = matches.valid[top_idx] & (top_scores > 1e-6)
 
-    a = matches.src_xy[top_idx]
-    b = matches.dst_xy[top_idx]
-    sigma = point_sigmas(
-        torch.maximum(matches.src_range, matches.dst_range), cfg)[top_idx]
+        a = matches.src_xy[top_idx]
+        b = matches.dst_xy[top_idx]
+        sigma = point_sigmas(
+            torch.maximum(matches.src_range, matches.dst_range), cfg)[top_idx]
 
-    # TIMs: differences of consecutive selected correspondences (a ring)
-    def roll(x):
-        return torch.roll(x, shifts=-1, dims=0)
+        # TIMs: differences of consecutive selected correspondences (a ring)
+        def roll(x):
+            return torch.roll(x, shifts=-1, dims=0)
 
-    tim_a = a - roll(a)
-    tim_b = b - roll(b)
-    tim_sigma = torch.sqrt(sigma ** 2 + roll(sigma) ** 2)
-    # degenerate TIMs (nearly coincident points) carry no rotation signal
-    tim_valid = (sel_valid & roll(sel_valid)
-                 & (torch.linalg.norm(tim_a, dim=-1) > 4.0 * tim_sigma))
+        tim_a = a - roll(a)
+        tim_b = b - roll(b)
+        tim_sigma = torch.sqrt(sigma ** 2 + roll(sigma) ** 2)
+        # degenerate TIMs (nearly coincident points) carry no rotation signal
+        tim_valid = (sel_valid & roll(sel_valid)
+                     & (torch.linalg.norm(tim_a, dim=-1) > 4.0 * tim_sigma))
 
-    theta, _ = gnc_rotation(tim_a, tim_b, tim_sigma, tim_valid, cfg)
-    t = robust_translation(a, b, sigma, sel_valid, theta, cfg)
+        theta, _ = gnc_rotation(tim_a, tim_b, tim_sigma, tim_valid, cfg)
+        t = robust_translation(a, b, sigma, sel_valid, theta, cfg)
 
-    # polish jointly with the full anisotropic noise model over the seed
-    # inlier set
-    res0 = torch.linalg.norm(
-        _rotate(a, torch.cos(theta), torch.sin(theta)) + t[None, :] - b, dim=-1)
-    seed_inl = sel_valid & (res0 < 5.0 * torch.clamp(sigma, min=cfg.sigma_range))
-    theta, t = anisotropic_refine(a, b, seed_inl, theta, t, cfg)
+        # polish jointly with the full anisotropic noise model over the seed
+        # inlier set
+        res0 = torch.linalg.norm(
+            _rotate(a, torch.cos(theta), torch.sin(theta)) + t[None, :] - b, dim=-1)
+        seed_inl = sel_valid & (res0 < 5.0 * torch.clamp(sigma, min=cfg.sigma_range))
+        theta, t = anisotropic_refine(a, b, seed_inl, theta, t, cfg)
 
-    # final inlier classification at the measurement level
-    c, s = torch.cos(theta), torch.sin(theta)
-    res = torch.linalg.norm(_rotate(a, c, s) + t[None, :] - b, dim=-1)
-    inl = sel_valid & (res < 3.0 * torch.clamp(sigma, min=cfg.sigma_range))
-    n_inl = torch.sum(inl)
-    mean_res = (torch.sum(torch.where(inl, res, torch.zeros_like(res)))
-                / torch.clamp(n_inl, min=1))
+        # final inlier classification at the measurement level
+        c, s = torch.cos(theta), torch.sin(theta)
+        res = torch.linalg.norm(_rotate(a, c, s) + t[None, :] - b, dim=-1)
+        inl = sel_valid & (res < 3.0 * torch.clamp(sigma, min=cfg.sigma_range))
+        n_inl = torch.sum(inl)
+        mean_res = (torch.sum(torch.where(inl, res, torch.zeros_like(res)))
+                    / torch.clamp(n_inl, min=1))
 
-    # b = R a + t  =>  T_rel = (R^T, -R^T t), theta_rel = -theta
-    rel = torch.stack([-(c * t[0] + s * t[1]), -(-s * t[0] + c * t[1]), -theta])
+        # b = R a + t  =>  T_rel = (R^T, -R^T t), theta_rel = -theta
+        rel = torch.stack([-(c * t[0] + s * t[1]), -(-s * t[0] + c * t[1]), -theta])
 
-    # out of place, so that torch.func.vmap batches it
-    inlier_mask = torch.zeros(M, dtype=torch.bool, device=inl.device).scatter(0, top_idx, inl)
-    return RegistrationResult(
-        rel_pose=rel,
-        inlier_mask=inlier_mask,
-        num_inliers=n_inl.to(torch.int32),
-        mean_residual=mean_res,
-        ok=n_inl >= cfg.min_inliers,
-    )
+        # out of place, so that torch.func.vmap batches it
+        inlier_mask = torch.zeros(M, dtype=torch.bool, device=inl.device).scatter(0, top_idx, inl)
+        return RegistrationResult(
+            rel_pose=rel,
+            inlier_mask=inlier_mask,
+            num_inliers=n_inl.to(torch.int32),
+            mean_residual=mean_res,
+            ok=n_inl >= cfg.min_inliers,
+        )

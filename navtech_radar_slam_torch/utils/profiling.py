@@ -1,11 +1,27 @@
-"""Wall-clock stage timers and a device trace context.
+"""The port's tracing: program spans, stage timers and a device trace.
 
-A copy of ``navtech_radar_slam_tpu/utils/profiling.py``: ``TicToc`` and
-``TicTocV2`` are the reference's tic_toc.h (milliseconds; TicTocV2 prints
-"<task>: X msec" only when built with display on), ``StageTimers`` the
-aggregated per-stage statistics the CLI reports.  ``device_trace`` is a
-``torch.profiler`` session in place of ``jax.profiler``: it writes one
-Chrome trace into its directory.
+``span(name)`` marks one stage of the program.  It is off unless a
+``torch.profiler`` session is recording (the benchmark's traced steps, the
+CLI's ``--profile_dir``): off, it reads one flag and does nothing else.
+While a session records, a span
+
+  * opens ``torch.profiler.record_function(name)``, so the stage sits in the
+    profiler's timeline on the same clock as the kernels it launches;
+  * keeps a ``Span`` in ``RECORDS`` (in memory, in the order the spans
+    opened): its name, its parent (the span open around it), its host start
+    and end (``time.perf_counter``) and, once the process has initialised
+    CUDA, a start and an end CUDA event recorded on the current stream.
+
+A span's device ms is the stream's wall time between its two events, idle
+time inside the span included, resolved only when read (``summary()``,
+after the steps): reading it waits for the end event.  ``summary()`` sums
+the records by name, ``reset()`` drops them.  By convention a span named
+``sync.<site>`` wraps a call that makes the host wait for the device, so
+their number counts the host syncs and their host time the wait.
+
+``StageTimers`` keeps the per-stage host statistics the CLI reports, and
+opens a span for each stage it times.  ``device_trace`` is a
+``torch.profiler`` session that writes one Chrome trace into its directory.
 """
 
 from __future__ import annotations
@@ -14,35 +30,97 @@ import contextlib
 import os
 import time
 from collections import defaultdict
-from typing import Dict, Optional
+from typing import Dict, List, Optional
+
+import torch
+
+#: the span context when no profiler session records: nothing at all
+_OFF = contextlib.nullcontext()
 
 
-class TicToc:
-    """tic_toc.h:10-32 — returns elapsed milliseconds."""
+class Span:
+    """One recorded span; ``parent`` is the enclosing ``Span`` or None."""
 
-    def __init__(self):
-        self.tic()
+    __slots__ = ("name", "parent", "host_start", "host_end", "events")
 
-    def tic(self) -> None:
-        self._start = time.perf_counter()
-
-    def toc(self) -> float:
-        return (time.perf_counter() - self._start) * 1e3
-
-
-class TicTocV2(TicToc):
-    """tic_toc.h:34-69 — named, print-gated (silent by default)."""
-
-    def __init__(self, name: str = "", display: bool = False):
-        super().__init__()
+    def __init__(self, name: str, parent: Optional["Span"]):
         self.name = name
-        self.display = display
+        self.parent = parent
+        self.host_start = self.host_end = time.perf_counter()
+        self.events = None
 
-    def toc(self) -> float:
-        ms = super().toc()
-        if self.display:
-            print(f"{self.name}: {ms:.1f} msec")
-        return ms
+    @property
+    def host_ms(self) -> float:
+        return (self.host_end - self.host_start) * 1e3
+
+    def device_ms(self) -> Optional[float]:
+        """The stream's wall time from the start event to the end event
+        (waits for the end event); None where no event was recorded."""
+        if self.events is None:
+            return None
+        start, end = self.events
+        end.synchronize()
+        return start.elapsed_time(end)
+
+
+#: every span recorded since the last ``reset()``, in the order they opened
+RECORDS: List[Span] = []
+#: the spans open now, innermost last (the program opens spans on one thread)
+_OPEN: List[Span] = []
+
+
+def span(name: str):
+    """A context that records the block as the span ``name`` while a
+    ``torch.profiler`` session records, and does nothing otherwise."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _OFF
+    return _recorded(name)
+
+
+@contextlib.contextmanager
+def _recorded(name: str):
+    rec = Span(name, _OPEN[-1] if _OPEN else None)
+    with torch.profiler.record_function(name):
+        if torch.cuda.is_initialized():
+            rec.events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            rec.events[0].record()
+        _OPEN.append(rec)
+        RECORDS.append(rec)
+        rec.host_start = time.perf_counter()
+        try:
+            yield
+        finally:
+            rec.host_end = time.perf_counter()
+            if rec.events is not None:
+                rec.events[1].record()
+            _OPEN.pop()
+
+
+def summary() -> Dict[str, dict]:
+    """Per span name: ``count``, ``host_ms`` (total), ``self_ms`` (host
+    total less the host time of the spans directly inside) and
+    ``device_ms`` (total; None where no span of the name has events)."""
+    out: Dict[str, dict] = {}
+    child_ms: Dict[int, float] = defaultdict(float)
+    for rec in RECORDS:
+        if rec.parent is not None:
+            child_ms[id(rec.parent)] += rec.host_ms
+    for rec in RECORDS:
+        s = out.setdefault(rec.name, {"count": 0, "host_ms": 0.0, "self_ms": 0.0,
+                                      "device_ms": None})
+        s["count"] += 1
+        s["host_ms"] += rec.host_ms
+        s["self_ms"] += rec.host_ms - child_ms[id(rec)]
+        dev = rec.device_ms()
+        if dev is not None:
+            s["device_ms"] = (s["device_ms"] or 0.0) + dev
+    return out
+
+
+def reset() -> None:
+    """Drop every recorded span (call it between steps, with no span open)."""
+    RECORDS.clear()
 
 
 class StageTimers:
@@ -53,7 +131,8 @@ class StageTimers:
     most the wall time even when totals overlap.  Caveat: a stage that only
     queues device work (kf_step, kf_segment, pgo_refine_*) times the
     launches, not the device; the wait lands in whichever stage reads a
-    result back (odo_fetch, loop_fetch)."""
+    result back (odo_fetch, loop_fetch).  Each stage is also a ``span``,
+    whose device ms (while a profiler records) time the device."""
 
     def __init__(self):
         self._total: Dict[str, float] = defaultdict(float)
@@ -67,7 +146,8 @@ class StageTimers:
         t0 = time.perf_counter()
         self._stack.append([stage, 0.0])
         try:
-            yield
+            with span(stage):
+                yield
         finally:
             ms = (time.perf_counter() - t0) * 1e3
             _, child_ms = self._stack.pop()
@@ -93,20 +173,16 @@ class StageTimers:
             )
         return "\n".join(lines)
 
-    def mean_ms(self, stage: str) -> float:
-        return self._total[stage] / max(self._count[stage], 1)
-
 
 @contextlib.contextmanager
 def device_trace(logdir: Optional[str]):
     """A ``torch.profiler`` session over the block (CPU and, where there is
     a card, CUDA activity) that writes ``trace.json``, a Chrome trace, into
-    ``logdir``; no-op when logdir is None."""
+    ``logdir``; no-op when logdir is None.  The program's spans are on
+    inside it and appear in the trace."""
     if logdir is None:
         yield
         return
-    import torch
-
     os.makedirs(logdir, exist_ok=True)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
