@@ -9,16 +9,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
   1. the card: CUDA must be available; prints nvidia-smi's name and power
      limit of the card;
-  2. the build: nvcc builds kernels K1, K2 and K3 (navtech_radar_slam_torch/
-     csrc/{cen_peaks,sc_corr,nn_dist}.cu; K1 x B is an entry point of the
-     first, K2-T and K3-T the T-slot entry points of the last two) from this
-     checkout, all three at once, into navtech_radar_slam_torch/_build/;
+  2. the build: nvcc builds kernels K1, K2, K3 and K4 (navtech_radar_slam_
+     torch/csrc/{cen_peaks,sc_corr,nn_dist,descriptors}.cu; K1 x B is an
+     entry point of the first, K2-T and K3-T the T-slot entry points of the
+     next two) from this checkout, all four at once, into
+     navtech_radar_slam_torch/_build/;
   3. K1 against its plain PyTorch twin on the card, on a full-size simulated
      scan as float input and through the 4-bit wire format: the same peak
      positions and values, exactly;
   4. the odometry path: RadarOdometry at the default config (= configs/
      config1_odometry_only.json) over 24 full-size scans of a circuit, with
-     every launch counter reset just before and read just after;
+     every launch counter reset just before and read just after (K1 and K4
+     once a scan);
   5. K1's times against its twin, and the per-scan RadarOdometry.process time;
   6. K2 against its plain version (max abs err <= 2e-5, the same best row
      and shift): a query and a (4096, 20, 60) bank of make_scancontext
@@ -144,7 +146,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
      solve's ms, the engine's ms per scan and the bank bytes per rank;
  16. times: K2 (on the all-live bank), K3, K2-T (16 slots, on the 30-row
      prefix and on the all-live bank), K3-T (16 slots) and K1 x B
-     (B = 64) against their plain versions, the per-scan SlamEngine.process
+     (B = 64) against their plain versions, then K4 (the constellation
+     descriptors) against its plain twin on the features of 16 of phase 4's
+     scans: every row bit-equal to the twin's (a last-bit difference flips
+     the matcher's near-ties) and each scan's rows at B = 1 bit-equal to
+     the batch's, and its time at B = 64 (those 16 scans' features
+     repeated) against the plain form's two vmapped calls of 32 scans (the
+     batched step's descriptors before K4); the per-scan SlamEngine.process
      time split into odometry, keyframe step and refine, and the streamed
      run's time per scan beside it;
  17. for each kernel, the device time per launch (CUDA events around 200
@@ -167,7 +175,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
      K2-T's report
      is at 16 queries x the 30-row prefix, K3-T's at 16 x (1024, 8192)
      with every slot computed,
-     K1 x B's at the 64 scans of phase 12.  Last, one RadarOdometry step
+     K1 x B's at the 64 scans of phase 12, K4's at phase 16's B = 64.
+     Last, one RadarOdometry step
      and one batched step under torch.profiler: wall ms, device kernels,
      the device's busy ms and share, and the step's one K1 (K1 x B)
      kernel as the trace holds it, as a share of the busy time and of the
@@ -194,7 +203,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
      call, its device kernels, busy ms and K2 kernel ms beside K2's device
      ms from phase 17.  Every
      counter is reset before (b) and read after (c): K2 once per detect,
-     query and call, nothing else.
+     query and call, nothing else;
+ 19. K4's device ms at B = 1, 64 and 512 (phase 16's 16 scans' features
+     repeated) against its bound.
 
 The line before the last is the kernel report
 {"kernels": [{"name", "route", "source", "replaces", "launches",
@@ -203,13 +214,15 @@ The line before the last is the kernel report
 "max_abs_err", "ms", "device_ms",
 "plain_ms", "bound_ms", "bound_by", "library_ms"}]} ("launches": the
 per-scan full-SLAM path's for K1, K2 and K3, the streamed path's for K2-T
-and K3-T, the batched odometry path's for K1 x B; "launches_cli": the sum
+and K3-T, the batched odometry path's for K1 x B and K4 (one a step, and
+the run fails where it is 0 there); "replaces": null for K4, which no
+TPU kernel computes; "launches_cli": the sum
 over phase 14's three CLI calls, prewarm included; "launches_mesh": phase
 15's mesh paths (search, odometry, engine), summed over the ranks;
 "launches_sc_manager": phase 18's (b) and (c); "ms": one
 wrapper call fenced by
 CUDA events, median; "library_ms": null, since no single PyTorch call
-computes any of the six functions), the last line
+computes any of the seven functions), the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Scans come from the port's numpy simulator (navtech_radar_slam_torch.data);
 nothing here or in the port imports jax or the JAX package.
@@ -243,11 +256,12 @@ from navtech_radar_slam_torch.models import slam as slam_mod
 from navtech_radar_slam_torch.models.odometry import (
     RadarOdometry, decode_power, default_azimuths, extract_scan_features,
     extract_scan_features_batched, make_batched_odometry_step, match_feature_pair,
-    register_step)
+    _descriptors_batched, register_step)
 from navtech_radar_slam_torch.ops import cen2019, icp, registration, scancontext
 from navtech_radar_slam_torch.ops.features import (
-    constellation_descriptors, patch_descriptors, polar_to_cartesian)
-from navtech_radar_slam_torch.ops.kernels import cen_peaks, nn_dist, sc_corr
+    constellation_descriptors, constellation_descriptors_plain, patch_descriptors,
+    polar_to_cartesian)
+from navtech_radar_slam_torch.ops.kernels import cen_peaks, descriptors, nn_dist, sc_corr
 from navtech_radar_slam_torch.utils.geometry import se2_between_np, se2_mul_np, se2_to_se3_np
 
 N_SCANS = 24
@@ -255,13 +269,14 @@ N_SLAM_SCANS = 60
 TIMED_RUNS = 30
 SC_ATOL = 2e-5       # the JAX suite's bound for the SC distances
 MIN_LOOPS = 12       # the JAX engine closes 17 on this circuit (CPU run)
-KERNELS = (cen_peaks, sc_corr, nn_dist)
+KERNELS = (cen_peaks, sc_corr, nn_dist, descriptors)
 #: every kernel's launch counter: (name, module, counter attribute)
 COUNTERS = (("cen_peaks", cen_peaks, "launch_count"), ("sc_corr", sc_corr, "launch_count"),
             ("nn_dist", nn_dist, "launch_count"),
             ("sc_corr_multi", sc_corr, "multi_launch_count"),
             ("nn_dist_multi", nn_dist, "multi_launch_count"),
-            ("cen_peaks_batched", cen_peaks, "batched_launch_count"))
+            ("cen_peaks_batched", cen_peaks, "batched_launch_count"),
+            ("descriptors", descriptors, "launch_count"))
 CHUNK = 16           # scans per chunk of the streamed path
 STREAMS = 64         # streams of the batched odometry path (bench.py's B)
 STREAM_STEPS = 8     # steps of each batched window
@@ -298,6 +313,10 @@ MATVEC_MAX_LAUNCHES = 100
 #: engine's recency exclusion first allows; the second session's clouds; the
 #: Cartesian utilities' bound against their CPU run
 SC_MANAGER_FIRST_DETECT = 30
+#: phase 19: the scans of K4's check against its twin, the batches it is
+#: timed at
+K4_SCANS = 16
+K4_BATCHES = (1, 64, 512)
 SESSION_B_CLOUDS = 60
 CART_ATOL = 1e-4
 # NVIDIA H100 SXM data-sheet peaks (at 700 W): HBM3 bytes/s, fp32 FLOP/s
@@ -1114,15 +1133,14 @@ def first_differing_op(step, cfg: SlamConfig, prev: torch.Tensor, curr: torch.Te
     feats = [extract_scan_features_batched(x, az, cfg) for x in (prev, curr)]
     # the halves sliced here, so that both records hold the same ops
     halves = [type(f)(*(x[sl] for x in f)) for f in feats] + [zero[sl]]
-    desc_in = [(f.xy, f.power, f.valid) for f in (feats[1], halves[1])]
     pair = torch.func.vmap(functools.partial(register_step, cfg=cfg))
-    desc = torch.func.vmap(functools.partial(constellation_descriptors, fcfg=cfg.features))
-    stages = (("descriptors as one torch.func.vmap over the streams (the extraction runs "
-               "it in calls of a fixed number of streams)",
-               lambda: desc(*desc_in[1]), lambda: desc(*desc_in[0])),
-              ("registration (register_step under vmap)",
-               lambda: pair(*halves), lambda: pair(*feats, zero)))
-    report = []
+    # the descriptors are one K4 launch, which no op record sees into: its
+    # rows for these streams are compared whole
+    k4 = [_descriptors_batched(f.xy, f.power, f.valid, cfg) for f in (feats[1], halves[1])]
+    report = [f"descriptors (one K4 launch): these streams' rows bit-equal "
+              f"{torch.equal(k4[0][sl], k4[1])}"]
+    stages = (("registration (register_step under vmap)",
+               lambda: pair(*halves), lambda: pair(*feats, zero)),)
     for stage, run_half, run_whole in stages:
         with OpRecord() as half:
             run_half()
@@ -1232,10 +1250,13 @@ def batched_path(cfg: SlamConfig, gt: np.ndarray, scans: list, dev, name_power: 
     want_k1b = STREAM_STEPS + 1
     print(f"batched odometry path: B = {STREAMS} streams x {STREAM_STEPS} steps, stream b on "
           f"scans b % {STREAM_OFFSETS} + 0..{STREAM_STEPS}; launches {launches} (K1xB "
-          f"{launches['cen_peaks_batched']}: one per step plus one for the seed)")
-    if launches["cen_peaks_batched"] != want_k1b or launches["cen_peaks"]:
-        raise AssertionError(f"K1 x B launched {launches['cen_peaks_batched']} times (want "
-                             f"{want_k1b}), K1 {launches['cen_peaks']} (want 0)")
+          f"{launches['cen_peaks_batched']} and K4 {launches['descriptors']}: one per step "
+          f"plus one for the seed)")
+    if (launches["cen_peaks_batched"] != want_k1b or launches["cen_peaks"]
+            or launches["descriptors"] != want_k1b):
+        raise AssertionError(f"K1 x B launched {launches['cen_peaks_batched']} times, K4 "
+                             f"{launches['descriptors']} (want {want_k1b} each), K1 "
+                             f"{launches['cen_peaks']} (want 0)")
 
     # each stream against the ground truth
     worst_ate, worst_share, min_ok = 0.0, 0.0, STREAM_STEPS
@@ -2004,6 +2025,63 @@ def cartesian_phase(x: torch.Tensor, cfg: SlamConfig, dev, name_power: str) -> N
                                  f"{CART_ATOL} or {zeros} zeros differ")
 
 
+def check_k4(scans: list, cfg: SlamConfig, dev, name_power: str) -> tuple:
+    """Phase 16's K4 check: bit-equal to its plain twin on the features of
+    K4_SCANS real scans, and each scan's rows at B = 1 the batch's; returns
+    (xy, power, valid) of those scans and the max abs error."""
+    fc = cfg.features
+    az = torch.as_tensor(default_azimuths(cfg), device=dev)
+    x = torch.as_tensor(np.stack(scans[:K4_SCANS]), device=dev)
+    f = extract_scan_features_batched(x, az, cfg)
+    args = (f.xy.contiguous(), f.power.contiguous(), f.valid.contiguous())
+    before = descriptors.launch_count
+    got = _descriptors_batched(*args, cfg)
+    torch.cuda.synchronize()
+    if descriptors.launch_count != before + 1:
+        raise AssertionError(f"K4: {descriptors.launch_count - before} launches for one call")
+    err, equal, alone = 0.0, 0, 0
+    for b in range(K4_SCANS):
+        one = [a[b] for a in args]
+        want = constellation_descriptors_plain(*one, fc)
+        err = max(err, float((got[b] - want).abs().max()))
+        equal += int((got[b] == want).all(dim=1).sum())
+        alone += int(torch.equal(constellation_descriptors(*one, fc), got[b]))
+    k = args[0].shape[1]
+    print(f"K4 vs plain, {K4_SCANS} scans x {k} features: max abs err {err:.3g}, rows "
+          f"bit-equal to the twin {equal} of {K4_SCANS * k}; scans whose B = 1 rows are the "
+          f"batch's bit for bit {alone} of {K4_SCANS} [{name_power}]")
+    if equal != K4_SCANS * k or alone != K4_SCANS:
+        raise AssertionError(f"K4: rows not bit-equal to the twin (max abs err {err}) or a "
+                             f"scan's rows depend on B")
+    return args, err
+
+
+def k4_batch(args: tuple, nscans: int) -> list:
+    """``nscans`` scans of check_k4's features, repeated in turn."""
+    idx = torch.arange(nscans, device=args[0].device) % args[0].shape[0]
+    return [a[idx].contiguous() for a in args]
+
+
+def k4_work(batch: list, fc) -> tuple:
+    """(bytes, fp32 operations) of one K4 launch: xy, power and valid in (13
+    bytes a feature), a row of P² floats out; ~20 operations a (centre,
+    neighbour) pair."""
+    nscans, k = batch[0].shape[:2]
+    return nscans * k * (13 + 4 * fc.desc_grid ** 2), 20.0 * nscans * k * k
+
+
+def descriptors_phase(args: tuple, cfg: SlamConfig, name_power: str) -> None:
+    """Phase 19: K4's device ms at each of K4_BATCHES against its bound."""
+    fc = cfg.features
+    for nb in K4_BATCHES:
+        batch = k4_batch(args, nb)
+        ms = device_ms(lambda: descriptors.constellation_descriptors_cuda(*batch, fc))
+        t_min, by = bound(*k4_work(batch, fc))
+        print(f"K4 at B = {nb}: device {ms:.5f} ms a launch (CUDA events over "
+              f"{DEVICE_LAUNCHES}), bound {t_min * 1e3:.3f} us ({by}), share "
+              f"{t_min / ms:.4f} [{name_power}]")
+
+
 def manager_run(scfg, clouds: list, clouds_cpu: list, capacity: int) -> tuple:
     """One manager on the card (no device given) and one on the CPU fed the
     same clouds, a detect after every insert past SC_MANAGER_FIRST_DETECT:
@@ -2178,7 +2256,7 @@ def main() -> None:
         kern.LIBRARY.start()
     for kern in KERNELS:
         kern.LIBRARY.load()
-    print(f"build: K1, K2, K3 built and loaded in {time.perf_counter() - t0:.2f} s")
+    print(f"build: K1, K2, K3, K4 built and loaded in {time.perf_counter() - t0:.2f} s")
     for kern in KERNELS:
         for line in kern.LIBRARY.log.splitlines():
             if "registers" in line or "spill" in line:
@@ -2226,9 +2304,9 @@ def main() -> None:
     n_ok = int(np.sum(oks))
     print(f"odometry path: {N_SCANS} scans, launches {odo_launches}, registration ok "
           f"{n_ok}/{N_SCANS - 1}, ATE {ate:.4f} m over a {path:.2f} m path")
-    if odo_launches["cen_peaks"] != N_SCANS:
-        raise AssertionError(f"K1 launched {odo_launches['cen_peaks']} times for "
-                             f"{N_SCANS} scans")
+    if odo_launches["cen_peaks"] != N_SCANS or odo_launches["descriptors"] != N_SCANS:
+        raise AssertionError(f"K1 launched {odo_launches['cen_peaks']} times, K4 "
+                             f"{odo_launches['descriptors']}, for {N_SCANS} scans")
     if n_ok < 20:
         raise AssertionError(f"registration ok on only {n_ok} of {N_SCANS - 1} steps")
     if not ate < 0.05 * path:
@@ -2424,6 +2502,16 @@ def main() -> None:
     print(f"K3-T nearest_neighbors_multi {tuple(src_t.shape)} x {tuple(tgt_t.shape)}: "
           f"kernel {k3t_ms:.4f} ms, plain {k3t_plain:.4f} ms (halves {pa:.4f} / {pb:.4f}), "
           f"median of {TIMED_RUNS} CUDA-event-timed runs each [{name_power}]")
+    k4_args, k4_err = check_k4(scans, cfg, dev, name_power)
+    k4_in = k4_batch(k4_args, STREAMS)
+    plain_k4 = torch.func.vmap(functools.partial(constellation_descriptors_plain,
+                                                 fcfg=cfg.features))
+    k4_ms, k4_plain, pa, pb = kernel_vs_plain(
+        lambda: descriptors.constellation_descriptors_cuda(*k4_in, cfg.features),
+        lambda: [plain_k4(*(a[i:i + 32] for a in k4_in)) for i in range(0, STREAMS, 32)])
+    print(f"K4 constellation_descriptors {tuple(k4_in[0].shape)}: kernel {k4_ms:.4f} ms, "
+          f"plain (vmapped calls of 32 scans) {k4_plain:.4f} ms (halves {pa:.4f} / {pb:.4f}), "
+          f"median of {TIMED_RUNS} CUDA-event-timed runs each [{name_power}]")
     k1b_ms, k1b_plain, pa, pb = kernel_vs_plain(
         lambda: cen_peaks.cen2019_scores_batched_cuda(batch, cfg.features, cfg.radar),
         lambda: cen2019.cen2019_scores_batched(batch, cfg.features, cfg.radar))
@@ -2547,11 +2635,15 @@ def main() -> None:
             # K1's count for each of the 64 scans (11.06 MB a scan)
             batch.shape[0] * 8 * na * nbp, batch.shape[0] * na * nbp * (2 * ntaps + 17),
             k1b_ms, k1b_plain, k1b_err, "cen_peaks_batched", "cen_peaks", "cen_peaks.py:121"),
+        "constellation_descriptors": (
+            lambda: descriptors.constellation_descriptors_cuda(*k4_in, fc),
+            *k4_work(k4_in, fc),
+            k4_ms, k4_plain, k4_err, "descriptors", "descriptors", None),
     }
     #: the path whose launches a kernel's report gives (the per-scan SLAM
     #: path for the rest)
     main_path = {"sc_corr_multi": stream_launches, "nn_dist_multi": stream_launches,
-                 "cen_peaks_batched": batched_launches}
+                 "cen_peaks_batched": batched_launches, "descriptors": batched_launches}
     report = []
     for name, (launch, n_bytes, n_ops, ms, plain, err, counter, src_name,
                tpu) in specs.items():
@@ -2585,7 +2677,7 @@ def main() -> None:
         report.append({
             "name": name, "route": "cuda",
             "source": f"navtech_radar_slam_torch/csrc/{src_name}.cu",
-            "replaces": f"navtech_radar_slam_tpu/ops/pallas/{tpu}",
+            "replaces": tpu and f"navtech_radar_slam_tpu/ops/pallas/{tpu}",
             "launches": main[counter], "launches_odometry": odo_n,
             "launches_slam": launches[counter], "launches_streaming": stream_launches[counter],
             "launches_batched": batched_launches[counter],
@@ -2628,6 +2720,9 @@ def main() -> None:
                                    name_power)
     for r in report:
         r["launches_sc_manager"] = sc_launches[specs[r["name"]][6]]
+
+    # 19. K4's device time at three batch sizes
+    descriptors_phase(k4_args, cfg, name_power)
 
     if "jax" in sys.modules or any(m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")

@@ -2,17 +2,18 @@
 
 Counterpart of ``navtech_radar_slam_tpu.models.odometry``.  One step is
 cen2019 extraction (the CUDA kernel on a CUDA tensor), constellation
-descriptors, mutual matching and ORORA-style registration, then two de-skew
-re-registrations of the matched set (``odometry_step``).  ``RadarOdometry``
+descriptors (kernel K4 on a CUDA tensor), mutual matching and ORORA-style
+registration, then two de-skew re-registrations of the matched set
+(``odometry_step``).  ``RadarOdometry``
 is the host accumulator: one fetch of (ok, rel_pose) per scan, the pose
 composed on the host in float64; ``make_odometry_step`` is the step with
 the configuration bound.
 
 ``make_batched_odometry_step`` advances B independent streams in one call
 (mapping fleets, dataset reprocessing): one batched extraction with one
-K1 x B launch, then the per-stream registration under ``torch.func.vmap``
-(the counterpart of the JAX package's ``jax.vmap``), each stream's result
-that of ``odometry_step`` on the stream alone.
+K1 x B launch and one K4 launch, then the per-stream registration under
+``torch.func.vmap`` (the counterpart of the JAX package's ``jax.vmap``),
+each stream's result that of ``odometry_step`` on the stream alone.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 
 from navtech_radar_slam_torch.config import SlamConfig
 from navtech_radar_slam_torch.ops import cen2019, features, registration
+from navtech_radar_slam_torch.ops.kernels import descriptors
 from navtech_radar_slam_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from navtech_radar_slam_torch.utils.geometry import se2_mul_np
 from navtech_radar_slam_torch.utils.profiling import span
@@ -164,32 +166,25 @@ def extract_scan_features(power: torch.Tensor, azimuths: torch.Tensor,
         )
 
 
-#: most streams of one vmapped descriptor call
+#: most streams of one vmapped descriptor call on the CPU: a call holds two
+#: (streams, K, K, P) float32 hat tensors
 DESC_STREAMS = 32
-#: most products of one batched matmul: past 65,535 (CUDA's grid limit)
-#: cuBLAS splits the batch, and a split-off product rounds otherwise
-MATMUL_BATCH = 65535
 
 
 def _descriptors_batched(xy: torch.Tensor, power: torch.Tensor, valid: torch.Tensor,
                          cfg: SlamConfig) -> torch.Tensor:
     """``constellation_descriptors`` of B streams ((B, K, 2), (B, K),
-    (B, K)) under ``torch.func.vmap``, in calls of a fixed number of streams
-    (DESC_STREAMS, fewer where their matmul would pass MATMUL_BATCH
-    products; the last call padded with streams of no valid feature), so
-    every call has one shape whatever B is: cuBLAS picks its kernel, and
-    with it the order of a product's sum, by the batch count, and a
-    stream's bits would otherwise depend on B.  A call holds two
-    (streams, K, K, P) float32 hat tensors, 2 GB each at 32 x (1024, 1024,
-    16)."""
-    b, k = xy.shape[:2]
-    per = min(DESC_STREAMS, 1 << (max(1, MATMUL_BATCH // k).bit_length() - 1))
-    pad = -b % per
-    args = [torch.cat([x, x.new_zeros((pad,) + x.shape[1:])]) for x in (xy, power, valid)]
-    fn = torch.func.vmap(functools.partial(features.constellation_descriptors,
+    (B, K)).  On the card one K4 launch for the whole batch
+    (``ops.kernels.descriptors``), each scan's rows the same bits at any B.
+    On the CPU the plain matmul form under ``torch.func.vmap``, in calls of
+    at most DESC_STREAMS streams, which bounds the hat tensors' memory."""
+    if xy.device.type == "cuda":
+        return descriptors.constellation_descriptors_cuda(
+            xy.contiguous(), power.contiguous(), valid.contiguous(), cfg.features)
+    fn = torch.func.vmap(functools.partial(features.constellation_descriptors_plain,
                                            fcfg=cfg.features))
-    return torch.cat([fn(*(x[i:i + per] for x in args))
-                      for i in range(0, b + pad, per)])[:b]
+    return torch.cat([fn(*(x[i:i + DESC_STREAMS] for x in (xy, power, valid)))
+                      for i in range(0, xy.shape[0], DESC_STREAMS)])
 
 
 def extract_scan_features_batched(powers: torch.Tensor, azimuths: torch.Tensor,
@@ -202,7 +197,8 @@ def extract_scan_features_batched(powers: torch.Tensor, azimuths: torch.Tensor,
     (B, NA, NBp // 2) 4-bit wire format; ``azimuths`` (NA,) shared by the
     streams; ``ray_valids`` ((B, NA) bool, optional) each stream's valid
     rays.  One K1 x B launch on a CUDA batch and one exact top-k for the
-    batch; the descriptors by ``_descriptors_batched``."""
+    batch; the descriptors by ``_descriptors_batched`` (one K4 launch on a
+    CUDA batch)."""
     with span("odo.extract"):
         if ray_valids is not None:
             powers = powers * ray_valids.to(powers.dtype)[:, :, None]

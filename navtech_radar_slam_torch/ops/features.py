@@ -3,7 +3,8 @@ the Cartesian rendering utilities.
 
 Counterpart of ``navtech_radar_slam_tpu.ops.features``: the pipeline's
 constellation descriptors and matcher (both matmuls in true float32: the
-package turns TF32 off at import), and the polar -> Cartesian bilinear
+package turns TF32 off at import; on a CUDA tensor the descriptors are
+kernel K4, ``ops.kernels.descriptors``), and the polar -> Cartesian bilinear
 rendering with radially-aligned image-patch descriptors
 (``polar_to_cartesian``, ``_bilinear_sample``, ``patch_descriptors``;
 visualisation and experiments, on no pipeline), plain torch ops on the
@@ -18,6 +19,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from navtech_radar_slam_torch.config import FeatureConfig, RadarConfig
+from navtech_radar_slam_torch.ops.kernels import descriptors
 from navtech_radar_slam_torch.utils.profiling import span
 
 
@@ -138,10 +140,27 @@ def constellation_descriptors(
 
     Each feature's neighbours (weighted by power and a radial falloff) are
     soft-splatted into a desc_grid x desc_grid histogram in the feature's
-    radial frame, then the histogram is centred and normalised.  The
-    bilinear splat is a separable hat basis contracted with one batched
-    matmul, as in the JAX code; it holds two (K, K, P) float32 tensors (about
-    64 MB each at K = 1024, P = 16)."""
+    radial frame, then the histogram is centred and normalised.  A CUDA
+    input takes kernel K4 (``descriptors.constellation_descriptors_cuda`` at
+    B = 1), which gives each scan the bits the batched call gives it; a CPU
+    input the plain form, ``constellation_descriptors_plain``."""
+    if xy.device.type == "cuda":
+        return descriptors.constellation_descriptors_cuda(
+            xy.contiguous()[None], power.contiguous()[None], valid.contiguous()[None], fcfg)[0]
+    return constellation_descriptors_plain(xy, power, valid, fcfg)
+
+
+def constellation_descriptors_plain(
+    xy: torch.Tensor,
+    power: torch.Tensor,
+    valid: torch.Tensor,
+    fcfg: FeatureConfig,
+) -> torch.Tensor:
+    """``constellation_descriptors`` in plain torch ops on the device of its
+    input (K4's twin, and the CPU's form): the bilinear splat is a separable
+    hat basis contracted with one batched matmul, as in the JAX code; it
+    holds two (K, K, P) float32 tensors (about 64 MB each at K = 1024, P =
+    16)."""
     K = xy.shape[0]
     P = fcfg.desc_grid
     cell = fcfg.desc_window / P

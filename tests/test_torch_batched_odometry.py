@@ -318,7 +318,7 @@ def test_batched_step_is_batch_size_invariant_on_cuda(cuda_device):
     and the step bit-equal (``torch.equal``).  CUDA chose the order of some
     batched sums by the batch size (the weighted median's prefix sum, the
     Gauss-Newton polish's einsum, and the descriptor matmul past 65,535
-    products)."""
+    products, which the K4 kernel has since replaced on the card)."""
     from navtech_radar_slam_torch.config import SlamConfig
     from navtech_radar_slam_torch.data import RadarSimulator as PortSimulator
 
